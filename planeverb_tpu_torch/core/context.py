@@ -13,12 +13,26 @@ ProjectPlaneverb/src/Context/PvContext.cpp):
     reference's BackgroundProcessor (PvContext.cpp:160).
 
 One step on a CUDA device is: voxelize (when the geometry changed) -> the
-B1 FDTD kernel -> the B2 RT60-moments kernel -> parameter assembly and DOA
--> one packed [gx, gy, 9] host copy. On the CPU the same step runs the
-kernels' plain versions.
+simulation and RT60-moments kernels -> parameter assembly and DOA -> the
+publish. The kernels take one of two routes by grid size
+(``ops/fdtd_fused.py::pipeline_auto``): up to ``TILED_MIN_CELLS`` solver
+cells the one-launch-per-step B1 and B2 (``csrc/fdtd_fused.cu``), above it
+the large-world B3 and B4 (``csrc/fdtd_tiled.cu``: k steps per launch over
+tiles, and the moments staged in reverse chunks). On the CPU the same step
+runs the kernels' plain versions.
 
-This slice ports the single-listener grids-publish engine. Its other modes
-raise NotImplementedError naming the ROADMAP item that ports them.
+Publish modes:
+
+  - ``"grids"``: one packed [gx, gy, 9] host copy per step. With lazy
+    directions (the default above ``LAZY_DOA_CELLS`` analysis cells) the
+    step skips the DOA pass and each query walks its own direction on the
+    host (``ops/doa.py::walk_direction``).
+  - ``"cells"``: only the live emitters' rows are gathered on the device
+    and copied; the packed grid stays on the device and any other probe
+    fetches its row on demand.
+
+Several listeners, ``mesh``/``halo`` and ``precision="bf16"`` are not
+ported yet and raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,12 +48,13 @@ from planeverb_tpu_torch.core.emissions import EmissionRegistry
 from planeverb_tpu_torch.core.free_grid import calibrate_free_field
 from planeverb_tpu_torch.core.geometry import GeometryRegistry
 from planeverb_tpu_torch.ops import voxelize
+from planeverb_tpu_torch.ops.doa import walk_direction
 from planeverb_tpu_torch.ops.fdtd_fused import pipeline_auto
 from planeverb_tpu_torch.scene import Scene
 from planeverb_tpu_torch.types import PlaneverbOutput, invalid_output, vec2
 from planeverb_tpu_torch.utils.profiling import StageTimer
 
-__all__ = ["Context"]
+__all__ = ["Context", "LAZY_DOA_CELLS"]
 
 
 def _pack(out) -> torch.Tensor:
@@ -71,6 +86,22 @@ def _grids_dict(grids) -> dict:
     }
 
 
+def _output_from_row(row) -> PlaneverbOutput:
+    """One packed [9] row (layout of :func:`_pack`) -> PlaneverbOutput."""
+    return PlaneverbOutput(
+        occlusion=float(row[0]), wet_gain=float(row[1]), rt60=float(row[2]),
+        lowpass=float(row[3]),
+        direction=vec2(float(row[4]), float(row[5])),
+        source_directivity=vec2(float(row[6]), float(row[7])),
+    )
+
+
+# grids above this many analysis cells compute DOA lazily per query (a host
+# walk, ops/doa.py::walk_direction) instead of the full-grid device pass;
+# the JAX engine's threshold (planeverb_tpu/core/context.py)
+LAZY_DOA_CELLS = 1 << 20
+
+
 def _unported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported to planeverb_tpu_torch yet "
@@ -88,9 +119,19 @@ class Context:
         ``"cpu"`` it runs their plain versions. A CUDA device without a
         card raises: there is no silent move to the CPU.
 
+        ``publish`` picks the per-step result transfer: ``"grids"`` copies
+        the packed [gx, gy, 9] grids to the host; ``"cells"`` copies only
+        the live emitters' rows and keeps the packed grid on the device,
+        where other probes fetch their row on demand.
+        ``lazy_directions`` skips the device DOA pass and walks each
+        query's direction on the host; the default ``None`` means lazy on
+        grids publish above :data:`LAZY_DOA_CELLS` analysis cells. Cells
+        publish computes directions on the device, so it refuses
+        ``lazy_directions=True``.
+
         Not ported yet (each raises NotImplementedError): ``mesh``/``halo``,
-        ``precision="bf16"``, ``publish="cells"``, ``lazy_directions=True``
-        and more than one listener (:meth:`set_listener_positions`).
+        ``precision="bf16"`` and more than one listener
+        (:meth:`set_listener_positions`).
         """
         config.validate()
         if mesh is not None or halo is not None:
@@ -99,12 +140,19 @@ class Context:
             raise _unported("Context(precision='bf16')", "A11")
         if precision != "f32":
             raise ValueError(f"unknown precision {precision!r}")
-        if publish == "cells":
-            raise _unported("Context(publish='cells')", "A8b")
-        if publish != "grids":
+        if publish not in ("grids", "cells"):
             raise ValueError(f"unknown publish mode {publish!r}")
-        if lazy_directions:
-            raise _unported("Context(lazy_directions=True)", "A8b")
+        self._publish_cells = publish == "cells"
+        params = compute_grid_params(config)
+        if lazy_directions is None:
+            lazy_directions = (not self._publish_cells
+                               and params.grid_x * params.grid_y
+                               > LAZY_DOA_CELLS)
+        if lazy_directions and self._publish_cells:
+            raise ValueError("publish='cells' computes directions on the "
+                             "device; lazy_directions needs host-side grids")
+        self._lazy_doa = bool(lazy_directions)
+        self._probe_lock = threading.Lock()   # guards cells-cache fills
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -114,7 +162,7 @@ class Context:
             raise ValueError(f"unsupported device {self.device}")
 
         self.config = config
-        self.params: GridParams = compute_grid_params(config)
+        self.params: GridParams = params
         self.geometry = GeometryRegistry()
         self.emissions = EmissionRegistry()
         self.timer = StageTimer()
@@ -270,24 +318,49 @@ class Context:
             self._warn_if_uncovered(lx, lz)
         self._sync_fields()
         cix, ciy = self.params.world_to_cell(lx, lz)
+        wanted = self._wanted_cells() if self._publish_cells else None
         with self.timer.stage("simulate+analyze"):
             res, out = pipeline_auto(
                 self.params, self._beta, self._refl, self._pulse, cix, ciy,
-                self.efree, float(np.float32(lx)), float(np.float32(lz)))
-            # the single host copy of the packed result grids; it waits for
+                self.efree, float(np.float32(lx)), float(np.float32(lz)),
+                compute_directions=not self._lazy_doa)
+            packed = _pack(out)
+            # the single host copy: the packed grids, or on cells publish
+            # only the emitters' rows, gathered on the device. It waits for
             # the device, so this stage times the whole pass, not its enqueue
-            grids = _pack(out).cpu().numpy()
+            if wanted is None:
+                fetched = packed.cpu().numpy()
+            elif wanted:
+                idx = torch.tensor(wanted, device=packed.device)
+                fetched = packed[idx[:, 0], idx[:, 1]].cpu().numpy()
+            else:
+                fetched = np.zeros((0, 9), np.float32)  # no emitters
+                if packed.is_cuda:
+                    torch.cuda.synchronize(packed.device)
         with self.timer.stage("publish"):
             # the recording stays on the device, exactly [T, nx, ny]
-            published = {
-                **_grids_dict(grids),
-                "listener": (lx, lz),
-                "pressure": res.pressure,
-            }
+            published = {"listener": (lx, lz), "pressure": res.pressure}
+            if wanted is None:
+                published.update(_grids_dict(fetched))
+            else:
+                published["cells"] = {cell: fetched[i]
+                                      for i, cell in enumerate(wanted)}
+                published["packed_device"] = packed   # [gx, gy, 9] on device
         self._published = published            # single atomic assignment
         with self._iter_cond:
             self._iteration += 1
             self._iter_cond.notify_all()
+
+    def _wanted_cells(self) -> list[tuple[int, int]]:
+        """The live emitters' in-grid cells, deduplicated and sorted: the
+        rows the cells publish copies each step."""
+        p = self.params
+        wanted = set()
+        for em in self.emissions.snapshot_emissions().values():
+            cx, cy = p.world_to_cell(em.position[0], em.position[2])
+            if 0 <= cx < p.grid_x and 0 <= cy < p.grid_y:
+                wanted.add((cx, cy))
+        return sorted(wanted)
 
     @property
     def iteration(self) -> int:
@@ -311,7 +384,25 @@ class Context:
         cx, cy = p.world_to_cell(x, z)
         if not (0 <= cx < p.grid_x and 0 <= cy < p.grid_y):
             return invalid_output()
-        d = results["direction"][cx, cy]
+        if "cells" in results:
+            cache = results["cells"]
+            row = cache.get((cx, cy))
+            if row is None:
+                # a probe outside the published emitter set: fetch its row
+                # on demand and memoize it in this snapshot's cache
+                with self._probe_lock:
+                    row = cache.get((cx, cy))
+                    if row is None:
+                        row = results["packed_device"][cx, cy].cpu().numpy()
+                        cache[(cx, cy)] = row
+            return _output_from_row(row)
+        if self._lazy_doa:
+            llx, llz = results["listener"]
+            d = walk_direction(p, results["occlusion"],
+                               results["delay_samples"], cx, cy,
+                               llx + p.grid_offset_x, llz + p.grid_offset_y)
+        else:
+            d = results["direction"][cx, cy]
         s = results["source_directivity"][cx, cy]
         return PlaneverbOutput(
             occlusion=float(results["occlusion"][cx, cy]),

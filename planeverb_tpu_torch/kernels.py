@@ -8,7 +8,8 @@ unchanged one loads the existing library. Nothing is built or loaded at
 import time: the CPU-only test environment imports this module too.
 
 A failed build raises with the compiler's output; there is no fallback.
-The launch counters live on the wrappers in ``ops/fdtd_fused.py``.
+The launch counters live on the wrappers in ``ops/fdtd_fused.py`` and
+``ops/fdtd_tiled.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -24,14 +26,14 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc", "build", "library", "check"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("fdtd_fused.cu",)
+_SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # -fmad=false: no multiply-add contraction, so every op rounds once, as in
 # PyTorch's elementwise kernels (the plain versions). No fast math: the
 # kernels rely on IEEE inf, no flush-to-zero, and an exact logf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
               "--ptxas-options=-v")
 
 _P = ctypes.c_void_p
@@ -43,6 +45,13 @@ _SIGNATURES = {
     "pv_fdtd_sim": [_P] * 19 + [_I] * 5 + [_F] * 5 + [_P],
     # rec, onset, s0, s1, nx, ny, T, dry_n + 1, end, log10_scale, stream
     "pv_rt60_moments": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
+    # 7 field planes, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state
+    # slots, nx, ny, T, tile_x, tile_y, k, lix, liy, courant, thr,
+    # src_dir_n, dry_n, wet_n, stream
+    "pv_fdtd_sim_tiled": [_P] * 21 + [_I] * 8 + [_F] * 5 + [_P],
+    # rec, onset, s0, s1, nx, ny, T, chunk, dry_n + 1, end, log10_scale,
+    # stream
+    "pv_rt60_moments_tiled": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -71,29 +80,47 @@ def _tag() -> str:
 def build(force: bool = False) -> tuple[str, str]:
     """Compile the kernels; returns (library path, compiler log).
 
-    The log holds ``ptxas -v``'s registers, shared memory and spills per
-    kernel, and sits beside the library. Raises RuntimeError with nvcc's
+    Each source compiles in its own nvcc process, all at once. The log
+    holds ``ptxas -v``'s registers, shared memory and spills per kernel,
+    and sits beside the library. Raises RuntimeError with nvcc's
     output when the build fails.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"libpv_kernels-{_tag()}.so")
     log_path = lib_path[:-3] + ".log"
     if force or not os.path.exists(lib_path):
-        # build to a private name and rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(_CSRC, s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        with open(log_path, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        # one nvcc per source, all started together, then one link; build
+        # to a private name and rename, so concurrent builders never load a
+        # half-written library
+        cc = nvcc()
+        tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+        try:
+            procs = []
+            for name in _SOURCES:
+                obj = os.path.join(tmpdir, name + ".o")
+                cmd = [cc, *NVCC_FLAGS, "-c", "-o", obj,
+                       os.path.join(_CSRC, name)]
+                procs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            outs = [(cmd, obj, proc.communicate()[0], proc.returncode)
+                    for cmd, obj, proc in procs]
+            tmp = os.path.join(tmpdir, "lib.so")
+            link = [cc, "-shared", "-o", tmp, *(o for _, o, _, _ in outs)]
+            for cmd, _, out, rc in outs:
+                if rc != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+            with open(log_path, "w") as f:
+                f.write("".join(out for _, _, out, _ in outs))
+            os.replace(tmp, lib_path)
+        finally:
+            shutil.rmtree(tmpdir, ignore_errors=True)
     log = ""
     if os.path.exists(log_path):
         with open(log_path) as f:

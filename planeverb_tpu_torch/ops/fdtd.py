@@ -122,21 +122,25 @@ def coefficients_from_fields(beta, Y, gx: int, gy: int, absorbing: bool):
 def fdtd_step_folded(p, vx, vy, beta, coefs, courant: float):
     """One fused FDTD timestep with prefolded coefficients. Returns
     (p, vx, vy) post-update, post-edge-ABC (the ABC lives in ``coefs``);
-    the returned ``p`` is this step's pressure before source injection."""
+    the returned ``p`` is this step's pressure before source injection.
+
+    The fields are [..., X, Y]: the last two axes are the grid, and leading
+    axes batch independent windows (ops/fdtd_tiled.py), each zero-padded at
+    its own edges."""
     a_x, b_x, d_x, a_y, b_y, d_y = coefs
 
     # -- pressure update: p = beta * (p - C * div v)   (FDTD.cpp:124-141)
-    vx_xp = F.pad(vx[1:], (0, 0, 0, 1))
-    vy_yp = F.pad(vy[:, 1:], (0, 1))
+    vx_xp = F.pad(vx[..., 1:, :], (0, 0, 0, 1))
+    vy_yp = F.pad(vy[..., 1:], (0, 1))
     div = (vx_xp - vx) + (vy_yp - vy)
     p = beta * (p - courant * div)
 
     # -- velocity updates incl. walls and edge ABC     (FDTD.cpp:143-223)
-    p_xm = F.pad(p[:-1], (0, 0, 1, 0))
+    p_xm = F.pad(p[..., :-1, :], (0, 0, 1, 0))
     air = vx - courant * (p - p_xm)
     vx = a_x * air + b_x * p + d_x * p_xm
 
-    p_ym = F.pad(p[:, :-1], (1, 0))
+    p_ym = F.pad(p[..., :-1], (1, 0))
     air = vy - courant * (p - p_ym)
     vy = a_y * air + b_y * p + d_y * p_ym
     return p, vx, vy

@@ -15,56 +15,32 @@ Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
 There is no fallback from the kernel to the plain version. Each wrapper
 counts its kernel launches in its ``launches`` attribute.
 
+:func:`simulate_auto` and :func:`pipeline_auto` route a grid above
+:data:`TILED_MIN_CELLS` cells to the tiled kernels of ``ops/fdtd_tiled.py``
+(B3, B4), on the card and in the plain versions alike.
+
 Fields are exactly [nx, ny] and the recording exactly [T, nx, ny]: no
 padding, no chunking.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from planeverb_tpu_torch import kernels
-from planeverb_tpu_torch.config import BoundaryType, GridParams
-from planeverb_tpu_torch.ops import analyzer
+from planeverb_tpu_torch.config import GridParams
+from planeverb_tpu_torch.ops import analyzer, fdtd_tiled
+from planeverb_tpu_torch.ops._common import (check_field, coefficients,
+                                             fresh_acc, moment_scalars,
+                                             moment_step, on_card,
+                                             stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
-from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
-                                          coefficients_from_fields,
-                                          fdtd_step_folded)
+from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
 
 __all__ = ["fdtd_sim", "fdtd_sim_reference", "rt60_moments",
            "rt60_moments_reference", "simulate_moments_fused",
            "simulate_moments_fused_reference", "simulate_auto",
-           "pipeline_auto", "reset_launch_counts"]
-
-# 10/ln(10) rounded to f32, the scale of y_db = 10 log10(EDC) from ln
-_LOG10_SCALE = np.float32(10.0 / np.log(10.0))
-
-
-def _on_card(where: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (kernel), False for CPU tensors (plain
-    version); raises for any other device or a device mix."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{where}: tensors on several devices {devices}")
-    dev = devices.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"{where}: no kernel and no plain path for device {dev}")
-
-
-def _check_field(where: str, name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{where}: {name} must be float32 {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-
-
-def _coefficients(params: GridParams, beta, refl):
-    return coefficients_from_fields(
-        beta, admittance(refl), params.grid_x, params.grid_y,
-        params.boundary_type == BoundaryType.ABSORBING)
+           "pipeline_auto", "reset_launch_counts", "TILED_MIN_CELLS"]
 
 
 def _inject(p, lix: int, liy: int, value) -> torch.Tensor:
@@ -77,13 +53,6 @@ def _inject(p, lix: int, liy: int, value) -> torch.Tensor:
     return p
 
 
-def _window_scalars(params: GridParams):
-    return (float(np.float32(params.courant)),
-            float(np.float32(params.constants.audible_threshold_gain)),
-            float(params.source_dir_samples), float(params.dry_gain_samples),
-            float(params.wet_gain_samples))
-
-
 # ----------------------------------------------------------------- B1 sim
 def fdtd_sim_reference(params: GridParams, beta, refl, pulse,
                        lix: int, liy: int):
@@ -93,42 +62,20 @@ def fdtd_sim_reference(params: GridParams, beta, refl, pulse,
     Returns (FdtdResult, (e_dry, e_wet, e_total)).
     """
     nx, ny, T = params.nx, params.ny, params.response_length
-    courant, thr, src_dir_n, dry_n, wet_n = _window_scalars(params)
-    coefs = _coefficients(params, beta, refl)
+    scalars = window_scalars(params)
+    coefs = coefficients(params, beta, refl)
     dev = beta.device
 
-    zeros = torch.zeros((nx, ny), dtype=torch.float32, device=dev)
-    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    p, vx, vy = zeros, zeros, zeros
-    onset = torch.full((nx, ny), float("inf"), dtype=torch.float32,
-                       device=dev)
-    fx = fy = ed = ew = et = zeros
+    p = vx = vy = torch.zeros((nx, ny), dtype=torch.float32, device=dev)
+    acc = fresh_acc((nx, ny), dev)
     rec = torch.empty((T, nx, ny), dtype=torch.float32, device=dev)
 
     for t in range(T):
-        p, vx, vy = fdtd_step_folded(p, vx, vy, beta, coefs, courant)
-
-        # window bounds are small-integer-valued, so exact in f32
-        tf = float(t)
-        c_flux = tf - src_dir_n
-        c_dry = tf - dry_n
-        c_wet_lo = tf - dry_n - 1.0
-        c_wet_hi = tf - dry_n - 1.0 - wet_n
-
-        onset = torch.minimum(onset, torch.where(p.abs() > thr,
-                                                 torch.full_like(p, tf), inf))
-        mp = torch.where(onset > c_flux, p, zero)
-        fx = fx + mp * vx
-        fy = fy + mp * vy
-        sq = p * p
-        ed = torch.where(onset > c_dry, ed + sq, ed)
-        ew = torch.where((onset <= c_wet_lo) & (onset > c_wet_hi), ew + sq,
-                         ew)
-        et = et + sq
-
+        p, vx, vy = fdtd_step_folded(p, vx, vy, beta, coefs, scalars[0])
+        acc = stream_step(t, p, vx, vy, acc, scalars)
         rec[t] = p  # record pre-injection, then inject at the listener
         p = _inject(p, lix, liy, pulse[t])
+    onset, fx, fy, ed, ew, et = acc
     res = FdtdResult(pressure=rec, onset=onset, flux_x=fx, flux_y=fy)
     return res, (ed, ew, et)
 
@@ -136,8 +83,8 @@ def fdtd_sim_reference(params: GridParams, beta, refl, pulse,
 def _launch_fdtd_sim(params: GridParams, beta, refl, pulse,
                      lix: int, liy: int):
     nx, ny, T = params.nx, params.ny, params.response_length
-    courant, thr, src_dir_n, dry_n, wet_n = _window_scalars(params)
-    coefs = _coefficients(params, beta, refl)
+    courant, thr, src_dir_n, dry_n, wet_n = window_scalars(params)
+    coefs = coefficients(params, beta, refl)
     fields = [c.contiguous() for c in (beta, *coefs)]
     pulse = pulse.contiguous()
     dev = beta.device
@@ -172,11 +119,11 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int):
     """
     where = "fdtd_sim"
     nx, ny = params.nx, params.ny
-    _check_field(where, "beta", beta, (nx, ny))
-    _check_field(where, "refl", refl, (nx, ny))
-    _check_field(where, "pulse", pulse, (params.response_length,))
+    check_field(where, "beta", beta, (nx, ny))
+    check_field(where, "refl", refl, (nx, ny))
+    check_field(where, "pulse", pulse, (params.response_length,))
     lix, liy = int(lix), int(liy)
-    if _on_card(where, beta, refl, pulse):
+    if on_card(where, beta, refl, pulse):
         return _launch_fdtd_sim(params, beta, refl, pulse, lix, liy)
     return fdtd_sim_reference(params, beta, refl, pulse, lix, liy)
 
@@ -185,29 +132,15 @@ fdtd_sim.launches = 0
 
 
 # ------------------------------------------------------------- B2 moments
-def _moment_scalars(params: GridParams):
-    T = params.response_length
-    return (float(params.dry_gain_samples + 1),
-            float(T - params.schroeder_offset_samples), float(_LOG10_SCALE))
-
-
 def rt60_moments_reference(params: GridParams, rec, onset):
     """Plain version of B2: a backward Python loop over the recording, in
     the kernel's summation order, on any device. Returns (s0, s1)."""
-    dry_n1, end, log10_scale = _moment_scalars(params)
+    dry_n1, end, log10_scale = moment_scalars(params)
     start = onset + dry_n1
-    edc = torch.zeros_like(onset)
-    s0 = torch.zeros_like(onset)
-    s1 = torch.zeros_like(onset)
+    carry = (torch.zeros_like(onset),) * 3
     for t in reversed(range(rec.shape[0])):
-        p = rec[t]
-        edc = edc + p * p                     # suffix sum incl. current
-        y = torch.log(torch.clamp(edc, min=1e-37)) * log10_scale
-        tf = float(t)
-        m = (tf >= start) & (tf < end)
-        s0 = torch.where(m, s0 + y, s0)
-        s1 = torch.where(m, s1 + (tf - start) * y, s1)
-    return s0, s1
+        carry = moment_step(t, rec[t], start, end, log10_scale, carry)
+    return carry[1], carry[2]
 
 
 def rt60_moments(params: GridParams, rec, onset):
@@ -215,14 +148,14 @@ def rt60_moments(params: GridParams, rec, onset):
     the [T, nx, ny] recording and the [nx, ny] onset (B2)."""
     where = "rt60_moments"
     nx, ny, T = params.nx, params.ny, params.response_length
-    _check_field(where, "rec", rec, (T, nx, ny))
-    _check_field(where, "onset", onset, (nx, ny))
-    if not _on_card(where, rec, onset):
+    check_field(where, "rec", rec, (T, nx, ny))
+    check_field(where, "onset", onset, (nx, ny))
+    if not on_card(where, rec, onset):
         return rt60_moments_reference(params, rec, onset)
     rec = rec.contiguous()
     onset = onset.contiguous()
     s = torch.empty((2, nx, ny), dtype=torch.float32, device=rec.device)
-    dry_n1, end, log10_scale = _moment_scalars(params)
+    dry_n1, end, log10_scale = moment_scalars(params)
     lib = kernels.library()
     with torch.cuda.device(rec.device):
         stream = torch.cuda.current_stream(rec.device).cuda_stream
@@ -238,8 +171,10 @@ rt60_moments.launches = 0
 
 
 def reset_launch_counts() -> None:
-    fdtd_sim.launches = 0
-    rt60_moments.launches = 0
+    """Zero the launch counters of B1, B2 and the tiled B3, B4."""
+    for fn in (fdtd_sim, rt60_moments, fdtd_tiled.fdtd_sim_tiled,
+               fdtd_tiled.rt60_moments_tiled):
+        fn.launches = 0
 
 
 # ------------------------------------------------------------ compositions
@@ -260,10 +195,30 @@ def simulate_moments_fused_reference(params: GridParams, beta, refl, pulse,
     return res, Moments(e_dry=ed, e_wet=ew, e_total=et, s0=s0, s1=s1)
 
 
+# Grids of more than this many solver cells (nx * ny) take the tiled route
+# (B3 + B4, ops/fdtd_tiled.py); smaller ones the one-launch-per-step B1 +
+# B2. chip_smoke.py phase 10 measures the crossover. On an H100 80GB HBM3
+# at 700 W, B3 + B4 against B1 + B2 took 4.8 vs 6.9 ms at 261^2, 8.0 vs
+# 12.0 ms at 459^2 and 42.7 vs 102.2 ms at 964^2; at 192^2 the order
+# changes from run to run (4.2 vs 5.1 ms, and 5.8 vs 5.1 ms in another
+# run), inside the noise. So the threshold sits at the headline's 192^2 =
+# 36,864 cells: the headline and every calibration grid (at most 25 m, so
+# at most 192^2) stay on B1 + B2, and every larger grid is tiled.
+TILED_MIN_CELLS = 192 * 192
+
+
+def _use_tiled(params: GridParams) -> bool:
+    return params.nx * params.ny > TILED_MIN_CELLS
+
+
 def simulate_auto(params: GridParams, beta, refl, pulse,
                   lix: int, liy: int) -> FdtdResult:
-    """One simulation pass (B1) on the fields' device."""
-    res, _ = fdtd_sim(params, beta, refl, pulse, lix, liy)
+    """One simulation pass on the fields' device: B1, or B3 above
+    :data:`TILED_MIN_CELLS` cells."""
+    if _use_tiled(params):
+        res, _ = fdtd_tiled.fdtd_sim_tiled(params, beta, refl, pulse, lix, liy)
+    else:
+        res, _ = fdtd_sim(params, beta, refl, pulse, lix, liy)
     return res
 
 
@@ -271,11 +226,17 @@ def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
                   efree: float, listener_x: float, listener_z: float,
                   compute_directions: bool = True
                   ) -> tuple[FdtdResult, AnalyzerResults]:
-    """Full pass on the fields' device: B1 + B2, then parameter assembly
-    and DOA. Returns (FdtdResult, AnalyzerResults); the recording is the
-    exact [T, nx, ny] buffer B1 wrote."""
-    res, moments = simulate_moments_fused(params, beta, refl, pulse,
-                                          lix, liy)
+    """Full pass on the fields' device: B1 + B2 (B3 + B4 above
+    :data:`TILED_MIN_CELLS` cells), then parameter assembly and, unless
+    ``compute_directions`` is False, DOA. Returns (FdtdResult,
+    AnalyzerResults); the recording is the exact [T, nx, ny] buffer the
+    sim kernel wrote."""
+    if _use_tiled(params):
+        res, moments = fdtd_tiled.simulate_moments_tiled(
+            params, beta, refl, pulse, lix, liy)
+    else:
+        res, moments = simulate_moments_fused(params, beta, refl, pulse,
+                                              lix, liy)
     out = analyzer.analyze_moments(params, moments, res.onset, res.flux_x,
                                    res.flux_y, efree, listener_x, listener_z,
                                    compute_directions=compute_directions)

@@ -37,12 +37,13 @@ def test_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         assert "jax" not in [k for k, v in sys.modules.items() if v]
+        assert "planeverb_tpu_torch.ops.fdtd_tiled" in names
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 16
 
 
 @pytest.mark.parametrize("size", [10.0, 25.0])
