@@ -31,7 +31,23 @@ line per phase:
      peak device memory;
  10. the route's crossover: B1 + B2 against B3 + B4 at 192^2, 261^2,
      459^2 and 964^2, the measurement ``fdtd_fused.TILED_MIN_CELLS`` rests
-     on.
+     on;
+ 11. B5 ``sharded_round`` (the sharded engine's rounds):
+     ``simulate_moments_sharded`` at the headline on 2x2, 4x1 and 1x1 meshes
+     of the one card (halo 16: 96^2 shards and 75 rounds on 2x2), all nine
+     outputs held to B1 + B2 and to the plain sharded path on the card, the
+     pass timed against B1 + B2 and the 2x2 simulation against its plain
+     version;
+ 12. B6 ``banded_round``: the 126 m world on a 2x2 mesh (482^2 shards, routed
+     to B6), held to B3 + B4 and to the plain sharded path, timed against
+     its plain version; then B6 forced (``band_rows=16``) against B5 on the
+     headline's 96^2 shards, the crossover the B5/B6 routing rests on;
+ 13. the sharded engine's main path: ``Context(mesh=grid_mesh(["cuda:0"] *
+     4, (2, 2)))`` at the headline, grids publish, five ``step()`` calls,
+     its grids equal to the single-device Context's; then the 126 m world
+     on the same mesh, cells publish, three steps, its emitter rows equal to
+     phase 9's; launch counts (set to 0 just before each part), step times
+     and peak device memory.
 
 Then a JSON line with each kernel's error and times, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -60,6 +76,11 @@ XL_STEPS = 3
 # 126 m, HugeRoom at 750 Hz
 CROSSOVER = (25.0, 34.0, 60.0, 126.0)
 CROSSOVER_REPS = 5
+# the sharded engine (phases 11-13): meshes of the one card at the headline,
+# the round length (the Context's default on 96^2 shards), B6's forced tile
+SHARDED_MESHES = ((2, 2), (4, 1), (1, 1))
+SHARD_HALO = 16
+FORCED_BAND = 16
 # kernel vs its plain version on the card: both round every op once (the
 # kernels build with -fmad=false), so they are expected bit-equal; the bound
 # checked is the C1 bound the port holds against JAX (1e-6 of the peak)
@@ -76,12 +97,17 @@ def _require(cond, msg) -> None:
 
 
 def _rel(a, b):
-    """max |a - b| / max |b| over finite entries, and max |a - b|."""
+    """max |a - b| / max |b| over finite entries, and max |a - b|; a
+    recording is walked in chunks of steps, so no copy of it is made."""
     import torch
 
-    fin = torch.isfinite(b)
-    diff = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
-    scale = b[fin].abs().max().item() if fin.any() else 0.0
+    diff = scale = 0.0
+    for x, y in (zip(a.split(64), b.split(64)) if a.dim() == 3
+                 else [(a, b)]):
+        fin = torch.isfinite(y)
+        if fin.any():
+            diff = max(diff, (x[fin] - y[fin]).abs().max().item())
+            scale = max(scale, y[fin].abs().max().item())
     return (diff / scale if scale > 0 else diff), diff
 
 
@@ -439,6 +465,7 @@ def main() -> int:
     _require(all(o.valid for o in xouts), xouts)
     cells = xctx._published["cells"]
     _require(len(cells) == len(XL_EMITTERS), sorted(cells))
+    xl_rows = dict(cells)     # phase 13 holds the sharded engine to these
     # the same pass with the grids publish's pipeline on the same fields
     xres, xout = fdtd_fused.pipeline_auto(
         xp, xctx._beta, xctx._refl, xctx._pulse,
@@ -496,6 +523,262 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
 
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.parallel import solver_fused
+
+    def nine(res, mom, q):
+        """The nine outputs of a sharded pass, assembled on the card and
+        cropped to the field."""
+        out = {k: v[..., :q.nx, :q.ny]
+               for k, v in res.assemble(dev)._asdict().items()}
+        out.update({k: v[:q.nx, :q.ny]
+                    for k, v in mom.assemble(dev)._asdict().items()})
+        return out
+
+    def hold(got, ref, what):
+        """onset equal, the sim outputs within REL_TOL and the moments
+        within MOMENTS_REL_TOL of the peak; returns ({name: (rel, abs)},
+        bit-equal on all nine)."""
+        _require(torch.equal(got["onset"], ref["onset"]),
+                 f"{what}: onset differs")
+        errs = {}
+        for name in got:
+            if name == "onset":
+                continue
+            errs[name] = _rel(got[name], ref[name])
+            bound = MOMENTS_REL_TOL if name in ("s0", "s1") else REL_TOL
+            _require(errs[name][0] <= bound,
+                     f"{what} {name}: rel {errs[name][0]} > {bound}")
+        return errs, all(torch.equal(got[k], ref[k]) for k in got)
+
+    def sharded_args(q, qb, qr, qp, mesh_shape):
+        mesh = parallel.grid_mesh(["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
+                                  mesh_shape)
+        nx_pad, ny_pad = parallel.pad_to_mesh(q.nx, q.ny, mesh)
+        pad = (0, ny_pad - q.ny, 0, nx_pad - q.nx)
+        return (q, torch.nn.functional.pad(qb, pad),
+                torch.nn.functional.pad(qr, pad), qp), (mesh, nx_pad, ny_pad)
+
+    # -- 11. B5: the headline on 2x2, 4x1 and 1x1 meshes of the card
+    t_phase = time.perf_counter()
+    fres, fmom = fdtd_fused.simulate_moments_fused(p, beta, refl, pulse,
+                                                   lix, liy)
+    single = {**fres._asdict(), **fmom._asdict()}
+    del fres, fmom
+    b5 = {}
+    for mshape in SHARDED_MESHES:
+        fields, (mesh, nx_pad, ny_pad) = sharded_args(p, beta, refl, pulse,
+                                                      mshape)
+        margs = (*fields, lix, liy, mesh, nx_pad, ny_pad)
+        fdtd_fused.reset_launch_counts()
+        got = nine(*parallel.simulate_moments_sharded(
+            *margs, halo=SHARD_HALO), p)
+        torch.cuda.synchronize()
+        counts = {"sharded_round": solver_fused.sharded_round.launches,
+                  "banded_round": solver_fused.banded_round.launches,
+                  "rt60_moments": fdtd_fused.rt60_moments.launches}
+        n_shards = mshape[0] * mshape[1]
+        rounds = -(-p.response_length // SHARD_HALO)
+        _require(counts == {"sharded_round": rounds * n_shards,
+                            "banded_round": 0, "rt60_moments": n_shards},
+                 f"B5 {mshape} launches {counts}")
+        _require(all(torch.isfinite(v).all() for k, v in got.items()
+                     if k != "onset"), f"B5 {mshape}: not finite")
+        vs_b1, b1_bits5 = hold(got, single, f"B5 {mshape} vs B1 + B2")
+        plain = nine(*parallel.simulate_moments_sharded_reference(
+            *margs, halo=SHARD_HALO), p)
+        torch.cuda.synchronize()
+        vs_plain, plain_bits5 = hold(got, plain, f"B5 {mshape} vs plain")
+        del got, plain
+        row = {"launches": counts["sharded_round"], "vs_plain": vs_plain,
+               "plain_bits": plain_bits5, "b1_bits": b1_bits5}
+        row["pass_ms"], row["b1b2_ms"] = _time_pair(
+            lambda: parallel.simulate_moments_sharded(*margs,
+                                                      halo=SHARD_HALO),
+            lambda: fdtd_fused.simulate_moments_fused(p, beta, refl, pulse,
+                                                      lix, liy), reps=3)
+        if mshape == SHARDED_MESHES[0]:
+            row["ms"], row["plain_ms"] = _time_pair(
+                lambda: parallel.simulate_sharded_fused(*margs,
+                                                        halo=SHARD_HALO),
+                lambda: parallel.simulate_sharded_reference(
+                    *margs, halo=SHARD_HALO), reps=2)
+        tile = solver_fused.pick_round_tile(
+            nx_pad // mshape[0], ny_pad // mshape[1], SHARD_HALO,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"phase 11 B5 sharded_round {mshape[0]}x{mshape[1]} mesh of "
+              f"cuda:0 {shape} (shards {nx_pad // mshape[0]}x"
+              f"{ny_pad // mshape[1]}, halo {SHARD_HALO}, tile {tile}): "
+              f"launches {counts}; vs B1 + B2 bit-equal {b1_bits5}; vs "
+              f"plain max rel "
+              + ", ".join(f"{k} {v[0]:.3g}" for k, v in vs_plain.items())
+              + f", bit-equal {plain_bits5} (onset equal); sharded pass "
+              f"(rounds + exchanges + B2) {row['pass_ms']:.3f} ms vs B1 + B2 "
+              f"{row['b1b2_ms']:.3f} ms"
+              + (f"; simulation {row['ms']:.3f} ms vs plain rounds "
+                 f"{row['plain_ms']:.3f} ms" if "ms" in row else "")
+              + f" ({label})", flush=True)
+        b5[mshape] = row
+    torch.cuda.empty_cache()
+    print(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # -- 12. B6: the 126 m world on a 2x2 mesh; B6 vs B5 at 96^2 shards
+    t_phase = time.perf_counter()
+    q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse, XL,
+                                          dev)
+    qshape = f"{q.nx}x{q.ny}x{q.response_length}"
+    fields, (mesh, nx_pad, ny_pad) = sharded_args(q, qb, qr, qp, (2, 2))
+    margs = (*fields, qx, qy, mesh, nx_pad, ny_pad)
+    fdtd_fused.reset_launch_counts()
+    got = nine(*parallel.simulate_moments_sharded(*margs, halo=SHARD_HALO),
+               q)
+    torch.cuda.synchronize()
+    counts = {"sharded_round": solver_fused.sharded_round.launches,
+              "banded_round": solver_fused.banded_round.launches,
+              "rt60_moments_tiled": fdtd_tiled.rt60_moments_tiled.launches}
+    rounds = -(-q.response_length // SHARD_HALO)
+    _require(counts == {"sharded_round": 0, "banded_round": 4 * rounds,
+                        "rt60_moments_tiled": 4}, f"B6 launches {counts}")
+    _require(all(torch.isfinite(v).all() for k, v in got.items()
+                 if k != "onset"), "B6: not finite")
+    tres, tmom = fdtd_tiled.simulate_moments_tiled(q, qb, qr, qp, qx, qy)
+    b6_vs_b3, b6_b3_bits = hold(got, {**tres._asdict(), **tmom._asdict()},
+                                "B6 vs B3 + B4")
+    del tres, tmom
+    torch.cuda.empty_cache()
+    plain = nine(*parallel.simulate_moments_sharded_reference(
+        *margs, halo=SHARD_HALO), q)
+    torch.cuda.synchronize()
+    b6_vs_plain, b6_plain_bits = hold(got, plain, "B6 vs plain")
+    del got, plain
+    torch.cuda.empty_cache()
+    b6 = {"launches": counts["banded_round"]}
+    b6["ms"] = _cuda_ms(lambda: parallel.simulate_sharded_fused(
+        *margs, halo=SHARD_HALO), 3)
+    b6["plain_ms"] = _once(lambda: parallel.simulate_sharded_reference(
+        *margs, halo=SHARD_HALO))[0]
+    b6["b3_ms"] = _cuda_ms(lambda: fdtd_tiled.fdtd_sim_tiled(
+        q, qb, qr, qp, qx, qy), 3)
+    torch.cuda.empty_cache()
+    tile = solver_fused.pick_round_tile(
+        nx_pad // 2, ny_pad // 2, SHARD_HALO,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"phase 12 B6 banded_round {qshape} on a 2x2 mesh of cuda:0 "
+          f"(shards {nx_pad // 2}x{ny_pad // 2}, halo {SHARD_HALO}, tile "
+          f"{tile}): launches {counts}; vs B3 + B4 bit-equal {b6_b3_bits}; "
+          f"vs plain max rel "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in b6_vs_plain.items())
+          + f", bit-equal {b6_plain_bits} (onset equal); simulation "
+          f"{b6['ms']:.3f} ms vs plain rounds {b6['plain_ms']:.3f} ms (one "
+          f"pass) and B3 {b6['b3_ms']:.3f} ms ({label})", flush=True)
+    # B6 forced against B5 on the headline's 96^2 shards
+    fields, (mesh, nx_pad, ny_pad) = sharded_args(p, beta, refl, pulse,
+                                                  (2, 2))
+    margs = (*fields, lix, liy, mesh, nx_pad, ny_pad)
+    forced = parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO,
+                                             band_rows=FORCED_BAND)
+    rounds5 = parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO)
+    same = all(torch.equal(a, b) for a, b in zip(
+        forced.assemble(dev), rounds5.assemble(dev)))
+    _require(same, "B6 forced differs from B5 at the headline")
+    del forced, rounds5
+    b6_96, b5_96 = _time_pair(
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO,
+                                                band_rows=FORCED_BAND),
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
+        reps=5)
+    print(f"phase 12 B5/B6 crossover at the headline's {nx_pad // 2}x"
+          f"{ny_pad // 2} shards (2x2, halo {SHARD_HALO}): B6 forced (band_rows={FORCED_BAND}: "
+          f"{FORCED_BAND}x{FORCED_BAND} tiles) {b6_96:.3f} ms, B5 "
+          f"{b5_96:.3f} ms, ratio {b6_96 / b5_96:.3f}, bit-equal {same} "
+          f"({label}, medians of 5 in turns)", flush=True)
+    print(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # -- 13. the sharded engine's main path: Context on a 2x2 mesh
+    t_phase = time.perf_counter()
+    mesh4 = parallel.grid_mesh(["cuda:0"] * 4, (2, 2))
+    fdtd_fused.reset_launch_counts()
+    mctx = pv.Context(cfg, scene=scene, mesh=mesh4)
+    mctx.set_listener_position(lx, 0.0, lz)
+    meids = [mctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    mev, mwall = zip(*(_once(mctx.step) for _ in range(STEPS)))
+    m_launches = {k: f.launches for k, f in (
+        ("fdtd_sim", fdtd_fused.fdtd_sim),
+        ("rt60_moments", fdtd_fused.rt60_moments),
+        ("sharded_round", solver_fused.sharded_round),
+        ("banded_round", solver_fused.banded_round),
+        ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
+        ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
+    rounds = -(-p.response_length // mctx._halo)
+    _require(m_launches == {"fdtd_sim": 1, "rt60_moments": 4 * STEPS,
+                            "sharded_round": 4 * rounds * STEPS,
+                            "banded_round": 0, "fdtd_sim_tiled": 0,
+                            "rt60_moments_tiled": 0}, m_launches)
+    one = pv.Context(cfg, scene=scene, device="cuda")
+    one.set_listener_position(lx, 0.0, lz)
+    for x, z in EMITTERS:
+        one.emissions.emit(x, 0.0, z)
+    one_ev, _ = _once(one.step)
+    mg, og = mctx._published, one._published
+    for k in mg.keys() - {"listener", "pressure"}:
+        np.testing.assert_array_equal(mg[k], og[k], err_msg=k)
+    _require(all(mctx.get_output(e).valid for e in meids), "mesh outputs")
+    mir = mctx.get_impulse_response(lx + 2 * p.dx, lz)
+    np.testing.assert_array_equal(
+        mir, one.get_impulse_response(lx + 2 * p.dx, lz))
+    del one
+    print(f"phase 13 main path Context(mesh=2x2 of cuda:0, halo "
+          f"{mctx._halo}) {shape}: launches {m_launches} (calibration + "
+          f"{STEPS} steps); step median {statistics.median(mev):.3f} ms "
+          f"(CUDA events), {statistics.median(mwall):.3f} ms (wall), steps "
+          + ", ".join(f"{v:.3f}" for v in mev)
+          + f" ms; single-device step {one_ev:.3f} ms; published grids and "
+          f"impulse response equal the single-device Context's ({label})",
+          flush=True)
+    b5_launches = m_launches["sharded_round"]
+    del mctx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fdtd_fused.reset_launch_counts()
+    xm = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
+                    mesh=mesh4)
+    xm.set_listener_position(xl_lx, 0.0, xl_lz)
+    xmeids = [xm.emissions.emit(x, 0.0, z) for x, z in XL_EMITTERS]
+    xmev, xmwall = zip(*(_once(xm.step) for _ in range(XL_STEPS)))
+    xm_launches = {k: f.launches for k, f in (
+        ("fdtd_sim", fdtd_fused.fdtd_sim),
+        ("rt60_moments", fdtd_fused.rt60_moments),
+        ("sharded_round", solver_fused.sharded_round),
+        ("banded_round", solver_fused.banded_round),
+        ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
+        ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
+    xrounds = -(-xp.response_length // xm._halo)
+    _require(xm_launches == {"fdtd_sim": 1, "rt60_moments": 0,
+                             "sharded_round": 0,
+                             "banded_round": 4 * xrounds * XL_STEPS,
+                             "fdtd_sim_tiled": 0,
+                             "rt60_moments_tiled": 4 * XL_STEPS},
+             xm_launches)
+    xm_peak = torch.cuda.max_memory_allocated() / 1e9
+    xm_cells = xm._published["cells"]
+    _require(xm_cells.keys() == xl_rows.keys(), sorted(xm_cells))
+    for cell, row in xm_cells.items():
+        np.testing.assert_array_equal(row, xl_rows[cell],
+                                      err_msg=f"cell {cell}")
+    _require(all(xm.get_output(e).valid for e in xmeids), "126 m outputs")
+    print(f"phase 13 large world Context({XL:g} m, publish='cells', mesh="
+          f"2x2 of cuda:0, halo {xm._halo}) {xshape}: launches "
+          f"{xm_launches} (calibration + {XL_STEPS} steps); step median "
+          f"{statistics.median(xmev):.3f} ms (CUDA events), "
+          f"{statistics.median(xmwall):.3f} ms (wall), steps "
+          + ", ".join(f"{v:.3f}" for v in xmev)
+          + f" ms; peak device memory {xm_peak:.2f} GB; emitter rows equal "
+          f"phase 9's ({label})", flush=True)
+    b6_launches = xm_launches["banded_round"]
+    del xm
+    torch.cuda.empty_cache()
+    print(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]
     b3_large = next(r for r in b3.values() if "plain_ms" in r)
@@ -524,6 +807,20 @@ def main() -> int:
          "launches": xl_launches["rt60_moments_tiled"],
          "max_abs_err": max(v[1] for v in b4_xl["vs_plain"].values()),
          "ms": b4_xl["ms"], "plain_ms": b4_xl["plain_ms"]},
+        {"name": "sharded_round", "route": "cuda",
+         "source": "planeverb_tpu_torch/csrc/solver_rounds.cu",
+         "replaces": "planeverb_tpu/parallel/solver_pallas.py:76",
+         "launches": b5_launches,
+         "max_abs_err": max(v[1] for r in b5.values()
+                            for v in r["vs_plain"].values()),
+         "ms": b5[SHARDED_MESHES[0]]["ms"],
+         "plain_ms": b5[SHARDED_MESHES[0]]["plain_ms"]},
+        {"name": "banded_round", "route": "cuda",
+         "source": "planeverb_tpu_torch/csrc/solver_rounds.cu",
+         "replaces": "planeverb_tpu/parallel/solver_pallas.py:221",
+         "launches": b6_launches,
+         "max_abs_err": max(v[1] for v in b6_vs_plain.values()),
+         "ms": b6["ms"], "plain_ms": b6["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,15 @@ the large-world B3 and B4 (``csrc/fdtd_tiled.cu``: k steps per launch over
 tiles, and the moments staged in reverse chunks). On the CPU the same step
 runs the kernels' plain versions.
 
+With ``mesh=`` the step runs the sharded engine
+(``parallel/solver_fused.py::pipeline_sharded``): the fields are padded to
+the mesh and sharded over it, and each shard advances in rounds of
+``halo`` steps between ghost exchanges, one B5 (``sharded_round``) or, for
+shards above ``TILED_MIN_CELLS`` cells, one B6 (``banded_round``) launch
+per shard and round (``csrc/solver_rounds.cu``); its moments come from B2
+or B4 on its own recording. The published grids equal the single-device
+step's bit for bit.
+
 Publish modes:
 
   - ``"grids"``: one packed [gx, gy, 9] host copy per step. With lazy
@@ -31,8 +40,8 @@ Publish modes:
     and copied; the packed grid stays on the device and any other probe
     fetches its row on demand.
 
-Several listeners, ``mesh``/``halo`` and ``precision="bf16"`` are not
-ported yet and raise NotImplementedError naming their ROADMAP item.
+Several listeners and ``precision="bf16"`` are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from planeverb_tpu_torch.config import (GridParams, PlaneverbConfig,
                                         compute_grid_params, gaussian_pulse)
@@ -50,6 +60,9 @@ from planeverb_tpu_torch.core.geometry import GeometryRegistry
 from planeverb_tpu_torch.ops import voxelize
 from planeverb_tpu_torch.ops.doa import walk_direction
 from planeverb_tpu_torch.ops.fdtd_fused import pipeline_auto
+from planeverb_tpu_torch.parallel.mesh import Mesh, pad_to_mesh
+from planeverb_tpu_torch.parallel.solver import shard_fields
+from planeverb_tpu_torch.parallel.solver_fused import pipeline_sharded
 from planeverb_tpu_torch.scene import Scene
 from planeverb_tpu_torch.types import PlaneverbOutput, invalid_output, vec2
 from planeverb_tpu_torch.utils.profiling import StageTimer
@@ -111,13 +124,22 @@ def _unported(option: str, item: str) -> NotImplementedError:
 class Context:
     def __init__(self, config: PlaneverbConfig, scene: Scene | None = None,
                  lazy_directions: bool | None = None,
-                 publish: str = "grids", mesh=None, halo: int | None = None,
-                 precision: str = "f32", device="cuda"):
-        """The engine on one torch ``device`` (default ``"cuda"``).
+                 publish: str = "grids", mesh: Mesh | None = None,
+                 halo: int | None = None, precision: str = "f32",
+                 device=None):
+        """The engine on one torch ``device`` (default ``"cuda"``), or
+        sharded over a ``mesh`` (``parallel.grid_mesh``).
 
         On a CUDA device every step runs the hand-written kernels; on
         ``"cpu"`` it runs their plain versions. A CUDA device without a
         card raises: there is no silent move to the CPU.
+
+        ``mesh`` shards every step over the mesh's devices (all CUDA or all
+        CPU; a ``device`` of another type raises), in rounds of ``halo``
+        steps between ghost exchanges; the default halo is the largest
+        power of two up to 16 that fits a shard. Calibration runs on the
+        mesh's first device, and the published grids equal the
+        single-device Context's.
 
         ``publish`` picks the per-step result transfer: ``"grids"`` copies
         the packed [gx, gy, 9] grids to the host; ``"cells"`` copies only
@@ -129,13 +151,14 @@ class Context:
         publish computes directions on the device, so it refuses
         ``lazy_directions=True``.
 
-        Not ported yet (each raises NotImplementedError): ``mesh``/``halo``,
+        Not ported yet (each raises NotImplementedError):
         ``precision="bf16"`` and more than one listener
-        (:meth:`set_listener_positions`).
+        (:meth:`set_listener_positions`), with or without a mesh.
         """
         config.validate()
-        if mesh is not None or halo is not None:
-            raise _unported("Context(mesh=..., halo=...)", "A14")
+        if mesh is not None and precision == "bf16":
+            raise ValueError("precision='bf16' is single-device only (the "
+                             "sharded pipeline runs f32)")
         if precision == "bf16":
             raise _unported("Context(precision='bf16')", "A11")
         if precision != "f32":
@@ -153,16 +176,44 @@ class Context:
                              "device; lazy_directions needs host-side grids")
         self._lazy_doa = bool(lazy_directions)
         self._probe_lock = threading.Lock()   # guards cells-cache fills
-        self.device = torch.device(device)
+        if mesh is None:
+            if halo is not None:
+                raise ValueError("halo is the sharded engine's round length; "
+                                 "it needs a mesh")
+            self.device = torch.device("cuda" if device is None else device)
+        else:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh (grid_mesh), "
+                                f"got {type(mesh).__name__}")
+            self.device = mesh.first_device
+            if device is not None and torch.device(device).type \
+                    != mesh.device_type:
+                raise ValueError(
+                    f"Context(device={device!r}) but the mesh's devices are "
+                    f"{mesh.device_type}: nothing moves between them")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                f"Context(device={device!r}): no CUDA device is available; "
-                f"pass device='cpu' to run the plain versions")
+                f"Context(device={str(self.device)!r}): no CUDA device is "
+                f"available; pass device='cpu' to run the plain versions")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
 
         self.config = config
         self.params: GridParams = params
+        self.mesh = mesh
+        if mesh is not None:
+            self._nx_pad, self._ny_pad = pad_to_mesh(params.nx, params.ny,
+                                                     mesh)
+            bx = self._nx_pad // mesh.shape["x"]
+            by = self._ny_pad // mesh.shape["y"]
+            if halo is None:
+                halo = 16
+                while halo > min(bx, by):
+                    halo //= 2
+            if not 1 <= halo <= min(bx, by):
+                raise ValueError(f"halo {halo} exceeds per-shard block "
+                                 f"({bx}, {by})")
+            self._halo = int(halo)
         self.geometry = GeometryRegistry()
         self.emissions = EmissionRegistry()
         self.timer = StageTimer()
@@ -235,8 +286,9 @@ class Context:
             return self._listener
 
     def set_listener_positions(self, positions) -> None:
-        """One listener only in this slice: a 1-element list is
-        :meth:`set_listener_position`; more raise NotImplementedError."""
+        """One listener only in this slice, with or without a mesh: a
+        1-element list is :meth:`set_listener_position`; more raise
+        NotImplementedError."""
         positions = [tuple(float(v) for v in p) for p in positions]
         if not positions:
             raise ValueError("need at least one listener position")
@@ -291,6 +343,13 @@ class Context:
                 b, r = voxelize.base_fields(self.params)
                 beta = torch.from_numpy(b).to(self.device)
                 refl = torch.from_numpy(r).to(self.device)
+            if self.mesh is not None:
+                # pad to the mesh (beta = 0, silent) and keep the shards,
+                # each on its mesh device
+                pad = (0, self._ny_pad - self.params.ny,
+                       0, self._nx_pad - self.params.nx)
+                beta, refl = shard_fields(self.mesh, F.pad(beta, pad),
+                                          F.pad(refl, pad))
             self._beta, self._refl = beta, refl
             self._fields_version = version
 
@@ -320,10 +379,16 @@ class Context:
         cix, ciy = self.params.world_to_cell(lx, lz)
         wanted = self._wanted_cells() if self._publish_cells else None
         with self.timer.stage("simulate+analyze"):
-            res, out = pipeline_auto(
-                self.params, self._beta, self._refl, self._pulse, cix, ciy,
-                self.efree, float(np.float32(lx)), float(np.float32(lz)),
-                compute_directions=not self._lazy_doa)
+            args = (self.params, self._beta, self._refl, self._pulse, cix,
+                    ciy)
+            rest = (self.efree, float(np.float32(lx)), float(np.float32(lz)))
+            if self.mesh is None:
+                res, out = pipeline_auto(
+                    *args, *rest, compute_directions=not self._lazy_doa)
+            else:
+                res, out = pipeline_sharded(
+                    *args, self.mesh, self._nx_pad, self._ny_pad, *rest,
+                    halo=self._halo, compute_directions=not self._lazy_doa)
             packed = _pack(out)
             # the single host copy: the packed grids, or on cells publish
             # only the emitters' rows, gathered on the device. It waits for
@@ -338,8 +403,11 @@ class Context:
                 if packed.is_cuda:
                     torch.cuda.synchronize(packed.device)
         with self.timer.stage("publish"):
-            # the recording stays on the device, exactly [T, nx, ny]
-            published = {"listener": (lx, lz), "pressure": res.pressure}
+            # the recording stays on the device, exactly [T, nx, ny]; on a
+            # mesh, per shard (the Sharded result)
+            published = {"listener": (lx, lz),
+                         "pressure": res if self.mesh is not None
+                         else res.pressure}
             if wanted is None:
                 published.update(_grids_dict(fetched))
             else:
@@ -433,6 +501,8 @@ class Context:
         cx, cy = p.world_to_cell(x, z)
         if not (0 <= cx < p.nx and 0 <= cy < p.ny):
             return np.zeros(0, np.float32)
+        if self.mesh is not None:   # the owning shard's recording
+            return published["pressure"].at("pressure", cx, cy).cpu().numpy()
         return published["pressure"][:, cx, cy].cpu().numpy()
 
     # --------------------------------------------------------------- admin

@@ -8,8 +8,8 @@ unchanged one loads the existing library. Nothing is built or loaded at
 import time: the CPU-only test environment imports this module too.
 
 A failed build raises with the compiler's output; there is no fallback.
-The launch counters live on the wrappers in ``ops/fdtd_fused.py`` and
-``ops/fdtd_tiled.py``.
+The launch counters live on the wrappers in ``ops/fdtd_fused.py``,
+``ops/fdtd_tiled.py`` and ``parallel/solver_fused.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc", "build", "library", "check"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu")
+_SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu", "solver_rounds.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # -fmad=false: no multiply-add contraction, so every op rounds once, as in
@@ -52,6 +52,14 @@ _SIGNATURES = {
     # rec, onset, s0, s1, nx, ny, T, chunk, dry_n + 1, end, log10_scale,
     # stream
     "pv_rt60_moments_tiled": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
+    # 8 folded planes, extended p/vx/vy, pulse, rec, acc, state_out, bx,
+    # by, kx, ky, t0, nsteps, halo, tile_x, tile_y, courant, thr,
+    # src_dir_n, dry_n, wet_n, stream
+    "pv_sharded_round": [_P] * 6 + [_I] * 9 + [_F] * 5 + [_P],
+    # beta/Y planes, extended p/vx/vy, pulse, rec, acc, state_out, bx, by,
+    # k, t0, nsteps, tile_x, tile_y, gi0, gj0, lix, liy, gx, gy,
+    # absorbing, courant, thr, src_dir_n, dry_n, wet_n, stream
+    "pv_banded_round": [_P] * 6 + [_I] * 14 + [_F] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()

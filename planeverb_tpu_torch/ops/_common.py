@@ -1,7 +1,8 @@
-"""Pieces shared by the kernel modules ``ops/fdtd_fused.py`` (B1, B2) and
-``ops/fdtd_tiled.py`` (B3, B4): the device dispatch and argument checks of
-their wrappers, the scalars their kernels take, and the per-step functions
-their plain versions are built from.
+"""Pieces shared by the kernel modules ``ops/fdtd_fused.py`` (B1, B2),
+``ops/fdtd_tiled.py`` (B3, B4) and ``parallel/solver_fused.py`` (B5, B6):
+the device dispatch, argument checks and launch counters of their wrappers,
+the scalars their kernels take, and the per-step functions their plain
+versions are built from.
 
 The kernels evaluate each expression in the order written here, one
 rounding per op, so a kernel and its plain version agree bit for bit.
@@ -37,6 +38,35 @@ def check_field(where: str, name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{where}: {name} must be float32 {tuple(shape)}, "
                          f"got {t.dtype} {tuple(t.shape)}")
+
+
+def moments_shape(where: str, params: GridParams, rec, onset):
+    """(X, Y) of a moments call: any [X, Y] onset (the whole field or one
+    shard of it) with its [T, X, Y] recording."""
+    if onset.dim() != 2:
+        raise ValueError(f"{where}: onset must be 2D, got "
+                         f"{tuple(onset.shape)}")
+    nx, ny = onset.shape
+    check_field(where, "onset", onset, (nx, ny))
+    check_field(where, "rec", rec, (params.response_length, nx, ny))
+    return nx, ny
+
+
+_COUNTED = []
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counter, ``fn.launches`` (0): the
+    wrapper adds one where it launches its kernel, and nowhere else."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counter of every kernel wrapper imported so far."""
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def coefficients(params: GridParams, beta, refl):

@@ -13,7 +13,8 @@ version of the same function:
 Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version, any other device raises.
 There is no fallback from the kernel to the plain version. Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+counts its kernel launches in its ``launches`` attribute;
+:func:`reset_launch_counts` zeroes every kernel's counter.
 
 :func:`simulate_auto` and :func:`pipeline_auto` route a grid above
 :data:`TILED_MIN_CELLS` cells to the tiled kernels of ``ops/fdtd_tiled.py``
@@ -31,8 +32,10 @@ from planeverb_tpu_torch import kernels
 from planeverb_tpu_torch.config import GridParams
 from planeverb_tpu_torch.ops import analyzer, fdtd_tiled
 from planeverb_tpu_torch.ops._common import (check_field, coefficients,
-                                             fresh_acc, moment_scalars,
-                                             moment_step, on_card,
+                                             counted, fresh_acc,
+                                             moment_scalars, moment_step,
+                                             moments_shape, on_card,
+                                             reset_launch_counts,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
@@ -106,6 +109,7 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse,
             (ed, ew, et))
 
 
+@counted
 def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int):
     """One full simulation pass with streaming onset/flux/energies (B1).
 
@@ -128,9 +132,6 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int):
     return fdtd_sim_reference(params, beta, refl, pulse, lix, liy)
 
 
-fdtd_sim.launches = 0
-
-
 # ------------------------------------------------------------- B2 moments
 def rt60_moments_reference(params: GridParams, rec, onset):
     """Plain version of B2: a backward Python loop over the recording, in
@@ -143,13 +144,14 @@ def rt60_moments_reference(params: GridParams, rec, onset):
     return carry[1], carry[2]
 
 
+@counted
 def rt60_moments(params: GridParams, rec, onset):
     """RT60 regression moments (s0, s1) of :class:`analyzer.Moments` from
-    the [T, nx, ny] recording and the [nx, ny] onset (B2)."""
+    the [T, X, Y] recording and the [X, Y] onset: the whole field, or one
+    shard of it (B2)."""
     where = "rt60_moments"
-    nx, ny, T = params.nx, params.ny, params.response_length
-    check_field(where, "rec", rec, (T, nx, ny))
-    check_field(where, "onset", onset, (nx, ny))
+    nx, ny = moments_shape(where, params, rec, onset)
+    T = params.response_length
     if not on_card(where, rec, onset):
         return rt60_moments_reference(params, rec, onset)
     rec = rec.contiguous()
@@ -165,16 +167,6 @@ def rt60_moments(params: GridParams, rec, onset):
     kernels.check(err, where)
     rt60_moments.launches += 1
     return s[0], s[1]
-
-
-rt60_moments.launches = 0
-
-
-def reset_launch_counts() -> None:
-    """Zero the launch counters of B1, B2 and the tiled B3, B4."""
-    for fn in (fdtd_sim, rt60_moments, fdtd_tiled.fdtd_sim_tiled,
-               fdtd_tiled.rt60_moments_tiled):
-        fn.launches = 0
 
 
 # ------------------------------------------------------------ compositions

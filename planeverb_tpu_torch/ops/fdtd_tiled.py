@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from planeverb_tpu_torch import kernels
 from planeverb_tpu_torch.config import GridParams
 from planeverb_tpu_torch.ops._common import (check_field, coefficients,
-                                             fresh_acc, moment_scalars,
-                                             moment_step, on_card,
+                                             counted, fresh_acc,
+                                             moment_scalars, moment_step,
+                                             moments_shape, on_card,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
@@ -190,6 +191,7 @@ def _launch_fdtd_sim_tiled(params: GridParams, beta, refl, pulse,
             (ed, ew, et))
 
 
+@counted
 def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
                    liy: int, tile=None, halo=None):
     """One simulation pass in rounds of ``halo`` steps over tiles (B3).
@@ -220,9 +222,6 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
                                     tile=(tx, ty), halo=k)
 
 
-fdtd_sim_tiled.launches = 0
-
-
 # ------------------------------------------------------------- B4 moments
 def _chunk(chunk) -> int:
     chunk = CHUNK if chunk is None else int(chunk)
@@ -247,14 +246,15 @@ def rt60_moments_tiled_reference(params: GridParams, rec, onset,
     return carry[1], carry[2]
 
 
+@counted
 def rt60_moments_tiled(params: GridParams, rec, onset, chunk=None):
-    """RT60 regression moments (s0, s1) from the [T, nx, ny] recording and
-    the [nx, ny] onset, walked in reverse chunks of ``chunk`` steps (B4;
-    default :data:`CHUNK`). The kernel reads the recording in place."""
+    """RT60 regression moments (s0, s1) from the [T, X, Y] recording and
+    the [X, Y] onset (the whole field, or one shard of it), walked in
+    reverse chunks of ``chunk`` steps (B4; default :data:`CHUNK`). The
+    kernel reads the recording in place."""
     where = "rt60_moments_tiled"
-    nx, ny, T = params.nx, params.ny, params.response_length
-    check_field(where, "rec", rec, (T, nx, ny))
-    check_field(where, "onset", onset, (nx, ny))
+    nx, ny = moments_shape(where, params, rec, onset)
+    T = params.response_length
     chunk = _chunk(chunk)
     if not on_card(where, rec, onset):
         return rt60_moments_tiled_reference(params, rec, onset, chunk)
@@ -274,9 +274,6 @@ def rt60_moments_tiled(params: GridParams, rec, onset, chunk=None):
     kernels.check(err, where)
     rt60_moments_tiled.launches += 1
     return s[0], s[1]
-
-
-rt60_moments_tiled.launches = 0
 
 
 # ------------------------------------------------------------ compositions

@@ -1,0 +1,123 @@
+"""Device mesh construction and grid padding for spatial sharding.
+
+Counterpart of ``planeverb_tpu/parallel/mesh.py``. A :class:`Mesh` is a 2D
+grid of torch devices with axes "x" and "y", driven by one process (the
+single-controller form of ``jax.sharding.Mesh`` under ``shard_map``). The
+same device may stand at several mesh positions: a mesh of ``"cpu"``
+repeated runs the plain versions, a mesh of ``"cuda:0"`` repeated runs the
+sharded engine's kernels on one card, with real ghosts and a real exchange.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["Mesh", "factor_mesh", "grid_mesh", "mesh_from_count",
+           "pad_to_mesh"]
+
+
+def _device(d) -> torch.device:
+    """torch.device(d), with a bare "cuda" read as "cuda:0" (where tensors
+    moved to "cuda" land by default), so blocks compare equal to their mesh
+    position's device."""
+    d = torch.device(d)
+    return torch.device("cuda", 0) if d.type == "cuda" and d.index is None \
+        else d
+
+
+class Mesh:
+    """A 2D ("x", "y") grid of torch devices.
+
+    ``devices[i][j]`` holds the shard of rows block i and columns block j;
+    ``shape["x"]``/``shape["y"]`` are the axis sizes. Every device is of one
+    type, ``cuda`` or ``cpu``: the sharded engine launches its kernels on a
+    CUDA mesh and runs their plain versions on a CPU mesh, never a mix.
+    """
+
+    axis_names = ("x", "y")
+
+    def __init__(self, devices):
+        rows = [[_device(d) for d in row] for row in devices]
+        if not rows or not rows[0] or any(len(r) != len(rows[0])
+                                           for r in rows):
+            raise ValueError("a mesh needs a non-empty rectangular grid of "
+                             "devices")
+        types = {d.type for row in rows for d in row}
+        if len(types) != 1 or not types <= {"cuda", "cpu"}:
+            raise ValueError(f"mesh devices must all be cuda or all cpu, "
+                             f"got {sorted(types)}")
+        self.devices = rows
+        self.shape = {"x": len(rows), "y": len(rows[0])}
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0][0].type
+
+    @property
+    def first_device(self) -> torch.device:
+        return self.devices[0][0]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape['x']}x{self.shape['y']}, "
+                f"{[[str(d) for d in r] for r in self.devices]})")
+
+
+def factor_mesh(n: int) -> tuple[int, int]:
+    """Split n devices into the most-square (mx, my) factorization.
+
+    A square-ish mesh minimizes halo perimeter per shard (the exchanged
+    ghost slabs are proportional to the shard boundary length).
+    """
+    best = (1, n)
+    for mx in range(1, int(math.isqrt(n)) + 1):
+        if n % mx == 0:
+            best = (mx, n // mx)
+    return best
+
+
+def _cuda_devices() -> list[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def grid_mesh(devices=None, shape: tuple[int, int] | None = None) -> Mesh:
+    """Build a 2D ("x", "y") mesh over the given devices (default: every
+    CUDA device), row-major. Devices may repeat: ``grid_mesh(["cuda:0"] * 4,
+    (2, 2))`` is a 2x2 mesh on one card."""
+    if devices is None:
+        devices = _cuda_devices()
+    devices = list(devices)
+    n = len(devices)
+    if shape is None:
+        shape = factor_mesh(n)
+    mx, my = shape
+    if mx * my != n:
+        raise ValueError(f"mesh shape {shape} != {n} devices")
+    return Mesh([devices[i * my:(i + 1) * my] for i in range(mx)])
+
+
+def mesh_from_count(n_devices: int) -> Mesh:
+    """Most-square 2D mesh over the first ``n_devices`` CUDA devices.
+
+    Raises ``ValueError`` when the host has fewer devices than requested:
+    a mesh of distinct cards is never made up from repeats here (build one
+    with :func:`grid_mesh` for that).
+    """
+    devices = _cuda_devices()
+    if n_devices > len(devices):
+        raise ValueError(f"mesh wants {n_devices} devices, "
+                         f"only {len(devices)} available")
+    return grid_mesh(devices[:n_devices])
+
+
+def pad_to_mesh(nx: int, ny: int, mesh: Mesh,
+                multiple: int = 1) -> tuple[int, int]:
+    """Padded field dims divisible by the mesh (and an optional multiple).
+
+    Padding cells carry beta = 0 (solid), so they never develop pressure and
+    the padded solve is exactly the unpadded solve on the real region.
+    """
+    qx = mesh.shape["x"] * multiple
+    qy = mesh.shape["y"] * multiple
+    return (-(-nx // qx) * qx, -(-ny // qy) * qy)

@@ -75,8 +75,9 @@ def _assert_golden(t, j):
     """Every cell's published parameters of the port's Context ``t`` held
     to the JAX Context ``j`` at the golden tolerances."""
     p = t.params
-    np.testing.assert_array_equal(t._published["delay_samples"],
-                                  j._published["delay_samples"])
+    if "delay_samples" in t._published:   # grids publish
+        np.testing.assert_array_equal(t._published["delay_samples"],
+                                      j._published["delay_samples"])
     xs = [(i + 0.5) * p.dx for i in range(p.grid_x)]
     zs = [(k + 0.5) * p.dx for k in range(p.grid_y)]
     a, b = _fields(t, xs, zs), _fields(j, xs, zs)
@@ -170,13 +171,33 @@ def test_background_loop():
         ctx.params.nx * ctx.params.ny * ctx.params.response_length)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"halo": 8},
-                                    {"precision": "bf16"}],
-                         ids=["mesh", "halo", "bf16"])
-def test_unported_options_raise(kwargs):
+def _port_mesh():
+    from planeverb_tpu_torch.parallel import grid_mesh
+
+    return grid_mesh(["cpu"] * 4, (2, 2))
+
+
+@pytest.mark.parametrize("case", ["mesh", "halo", "bf16"])
+def test_unported_options_raise(case):
+    """What is not ported yet raises NotImplementedError naming its ROADMAP
+    item: several listeners on a mesh (A9), the overlapped halo exchange of
+    the sharded rounds (A14) and precision="bf16" (A11)."""
+    from planeverb_tpu_torch.parallel import simulate_sharded_fused
+
+    cfg = tpv.PlaneverbConfig(10.0, 10.0, 275)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpv.Context(tpv.PlaneverbConfig(10.0, 10.0, 275), device="cpu",
-                    **kwargs)
+        if case == "mesh":
+            ctx = tpv.Context(cfg, mesh=_port_mesh())
+            ctx.set_listener_positions([(5, 0, 5), (3, 0, 3)])
+        elif case == "halo":
+            p = tpv.compute_grid_params(cfg)
+            zeros = torch.zeros((30, 30))
+            simulate_sharded_fused(p, zeros, zeros,
+                                   torch.zeros(p.response_length), 5, 5,
+                                   _port_mesh(), 30, 30, halo=8,
+                                   overlap=True)
+        else:
+            tpv.Context(cfg, device="cpu", precision="bf16")
 
 
 CFG10 = (10.0, 10.0, 275)
@@ -236,6 +257,43 @@ def test_cells_publish_mode_matches_grids():
     with pytest.raises(ValueError, match="publish"):
         tpv.Context(tpv.PlaneverbConfig(*CFG10), publish="nope",
                     device="cpu")
+
+
+@pytest.mark.parametrize("publish", ["grids", "cells"])
+def test_mesh_context_matches(publish):
+    """The port's Context on a 2x2 mesh of cpu (the plain B5 rounds, halo
+    8 on its 15 x 15 shards) publishes exactly what the single-device
+    Context publishes (every grid, or every emitter row and the device
+    grid), with equal impulse responses read from the owning shards; and
+    the JAX Context on a 2x2 mesh of its CPU devices within the golden
+    tolerances."""
+    import jax
+
+    from planeverb_tpu.parallel import grid_mesh as jax_grid_mesh
+
+    ctx_m, em = _small_ctx(tpv, mesh=_port_mesh(), publish=publish)
+    ctx_1, _ = _small_ctx(tpv, publish=publish)
+    jax_m, ej = _small_ctx(jpv, mesh=jax_grid_mesh(jax.devices()[:4],
+                                                   (2, 2)),
+                           publish=publish)
+    assert ctx_m._halo == 8 and ctx_m.mesh.shape == {"x": 2, "y": 2}
+    a, b = ctx_m._published, ctx_1._published
+    if publish == "grids":
+        for k in a.keys() - {"listener", "pressure"}:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    else:
+        assert a["cells"].keys() == b["cells"].keys() and len(a["cells"])
+        for cell, row in a["cells"].items():
+            np.testing.assert_array_equal(row, b["cells"][cell])
+        assert torch.equal(a["packed_device"], b["packed_device"])
+    for x, z in ((6.5, 5.0), (4.0, 5.0), (1.0, 8.5), (9.0, 1.5)):
+        ir = ctx_m.get_impulse_response(x, z)
+        assert ir.shape == (ctx_m.params.response_length,)
+        np.testing.assert_array_equal(ir, ctx_1.get_impulse_response(x, z))
+    assert ctx_m.get_impulse_response(500.0, 5.0).shape == (0,)
+    for e_m, e_j in zip(em, ej):
+        _same_output(ctx_m.get_output(e_m), jax_m.get_output(e_j), 2e-4)
+    _assert_golden(ctx_m, jax_m)
 
 
 def test_cells_publish_without_emitters():

@@ -38,12 +38,37 @@ def test_imports_without_jax():
             importlib.import_module(name)
         assert "jax" not in [k for k, v in sys.modules.items() if v]
         assert "planeverb_tpu_torch.ops.fdtd_tiled" in names
+        assert "planeverb_tpu_torch.parallel.solver_fused" in names
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 16
+    assert int(proc.stdout.strip()) >= 20
+
+
+def test_parallel_imports_without_jax():
+    """The sharded engine (planeverb_tpu_torch.parallel) imports, builds a
+    mesh of repeated cpu and steps it, with jax and planeverb_tpu
+    blocked."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["planeverb_tpu"] = None
+        import planeverb_tpu_torch as pv
+        from planeverb_tpu_torch import parallel
+        mesh = parallel.grid_mesh(["cpu"] * 2, (2, 1))
+        ctx = pv.Context(pv.PlaneverbConfig(6.0, 6.0, 275), mesh=mesh)
+        ctx.set_listener_position(3.0, 0.0, 3.0)
+        ctx.step()
+        assert ctx.result_at(4.0, 3.0).valid
+        assert "jax" not in [k for k, v in sys.modules.items() if v]
+        print(sorted(parallel.__all__))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "simulate_moments_sharded" in proc.stdout
 
 
 @pytest.mark.parametrize("size", [10.0, 25.0])
