@@ -47,9 +47,26 @@ line per phase:
      its grids equal to the single-device Context's; then the 126 m world
      on the same mesh, cells publish, three steps, its emitter rows equal to
      phase 9's; launch counts (set to 0 just before each part), step times
-     and peak device memory.
+     and peak device memory;
+ 14. B1/B2's batched mode: ``fdtd_sim_batch`` and ``rt60_moments_batch``
+     at the headline with four listeners (the headline's and the three
+     emitter positions), held to their plain versions and to four
+     single-listener B1 + B2 passes (bit-equal), timed against both;
+ 15. the multi-listener main path: ``Context.set_listener_positions`` with
+     the four views at the headline, grids publish (one batched B1 pass and
+     one B2 launch a step; each view's grids equal a single-listener
+     Context's) and cells publish (rows equal the grids'); the 126 m world
+     with two views, cells publish (one B3 + B4 pass a view, peak device
+     memory of one recording); the headline on the 2x2 mesh of the card
+     with two views (grids equal the single-device views');
+ 16. B1/B2's bf16 mode: ``fdtd_sim`` and ``fdtd_sim_batch`` with bf16 wave
+     state and ``rt60_moments`` / ``rt60_moments_batch`` on the bf16
+     recordings against their plain versions, times against float32, and
+     ``Context(precision="bf16")`` at the headline against the float32
+     Context at the bf16 parameter bounds.
 
-Then a JSON line with each kernel's error and times, and as the last line
+Then a JSON line with each kernel's (and mode's) launches on its main
+path, error, times and bound, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. It needs a CUDA card and the repository
 beside it; it imports neither jax nor planeverb_tpu.
@@ -88,6 +105,29 @@ REL_TOL = 1e-6
 # RT60 moments: logf inside the kernel vs torch.log; same bound as the JAX
 # package's own kernel test (scale-relative 1e-5)
 MOMENTS_REL_TOL = 1e-5
+# several listeners (phases 14, 15): the headline's listener and the three
+# emitter positions; two of them on the 2x2 mesh; two views of the 126 m
+# world (its center, phase 9's listener, and one 10 m off), two steps
+VIEWS = [HEADLINE["listener"], *EMITTERS]
+MESH_VIEWS = 2
+XL_VIEWS = [(XL / 2, XL / 2), (XL / 2 - 10.0, XL / 2 + 6.0)]
+XL_MULTI_STEPS = 2
+# bf16 against float32 parameters (phase 16): the bounds of the JAX
+# package's tests/test_fdtd_pallas.py::test_bf16_state_mode_golden_parameters
+# (SmallRoom, 10 m at 275 Hz), held on every cell there and on the
+# emitters' cells at the headline
+BF16_BOUNDS = {"occlusion": 0.02, "wet_gain": 0.02, "rt60": 0.06,
+               "lowpass": 0.005}
+BF16_MAX_DEGREES = 2.0
+# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): HBM bytes
+# a second, and float32 operations a second outside the tensor cores (the
+# kernels compute in float32, bf16 included)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations a cell and step of the sims, and a recorded sample of the
+# moments (the JAX kernels' pl.CostEstimate: 40 flops; 8 flops and a log)
+SIM_OPS = 40
+MOMENTS_OPS = 9
 
 
 def _require(cond, msg) -> None:
@@ -97,13 +137,15 @@ def _require(cond, msg) -> None:
 
 
 def _rel(a, b):
-    """max |a - b| / max |b| over finite entries, and max |a - b|; a
-    recording is walked in chunks of steps, so no copy of it is made."""
+    """max |a - b| / max |b| over finite entries, and max |a - b|, in
+    float32; a recording ([T, X, Y] or [B, T, X, Y]) is walked in chunks of
+    steps, so no copy of it is made."""
     import torch
 
     diff = scale = 0.0
-    for x, y in (zip(a.split(64), b.split(64)) if a.dim() == 3
-                 else [(a, b)]):
+    for x, y in (zip(a.flatten(0, -3).split(64), b.flatten(0, -3).split(64))
+                 if a.dim() >= 3 else [(a, b)]):
+        x, y = x.float(), y.float()
         fin = torch.isfinite(y)
         if fin.any():
             diff = max(diff, (x[fin] - y[fin]).abs().max().item())
@@ -170,6 +212,66 @@ def _cuda_ms(fn, reps):
     """CUDA-event median (ms) of fn over reps calls, after one warm-up."""
     fn()
     return statistics.median(_once(fn)[0] for _ in range(reps))
+
+
+def _bound(moved_bytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sim_bound(q, listeners=1, state_bytes=4):
+    """Bound of one simulation pass: read beta and six coefficient planes
+    (state type) and the pulse, write each listener's recording (state
+    type) and six float32 accumulator planes."""
+    cells, T = q.nx * q.ny, q.response_length
+    moved = (7 * state_bytes * cells + 4 * T
+             + listeners * (state_bytes * T * cells + 6 * 4 * cells))
+    return _bound(moved, SIM_OPS * listeners * T * cells)
+
+
+def _moments_bound(q, listeners=1, rec_bytes=4):
+    """Bound of the moments: read each recording and onset, write s0, s1."""
+    cells, T = q.nx * q.ny, q.response_length
+    moved = listeners * (rec_bytes * T * cells + 3 * 4 * cells)
+    return _bound(moved, MOMENTS_OPS * listeners * T * cells)
+
+
+def _param_errs(ref, got):
+    """Per-cell deviations of got's parameters from ref's: relative for
+    the four gains (cells where |ref| > 1e-6), degrees for the two
+    directions (nonzero cells), as the JAX package's bf16 test measures
+    them. {name: 1-D array}."""
+    import numpy as np
+
+    errs = {}
+    for k in BF16_BOUNDS:
+        a = np.asarray(ref[k], np.float64)
+        b = np.asarray(got[k], np.float64)
+        m = np.abs(a) > 1e-6
+        errs[k] = np.abs(a - b)[m] / np.abs(a)[m]
+    for k in ("direction", "source_directivity"):
+        a = np.asarray(ref[k], np.float64)
+        b = np.asarray(got[k], np.float64)
+        nrm = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)
+        ok = nrm > 1e-9
+        cos = np.clip((a * b).sum(-1)[ok] / nrm[ok], -1.0, 1.0)
+        errs[k] = np.degrees(np.arccos(cos))
+    return errs
+
+
+def _within_bf16_bounds(errs, what) -> None:
+    for k, err in errs.items():
+        bound = BF16_BOUNDS.get(k, BF16_MAX_DEGREES)
+        _require(err.size == 0 or err.max() < bound,
+                 f"{what} {k}: {err.max()} >= {bound}")
+
+
+# the packed publish row's fields, in column order (core/context.py::_pack)
+ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
+              "source_directivity", "delay_samples")
 
 
 def _large_inputs(pv, voxelize, gaussian_pulse, size, dev):
@@ -779,48 +881,399 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
 
+    def counts_of(*fns):
+        return {f.__name__: f.launches for f in fns}
+
+    sim_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch,
+               fdtd_fused.rt60_moments, fdtd_fused.rt60_moments_batch,
+               fdtd_tiled.fdtd_sim_tiled, fdtd_tiled.rt60_moments_tiled)
+
+    # -- 14. batched B1/B2: four listeners at the headline
+    t_phase = time.perf_counter()
+    vcells = [p.world_to_cell(x, z) for x, z in VIEWS]
+    nv = len(vcells)
+    _require(vcells[0] == (lix, liy), "view 0 is the headline's listener")
+    fdtd_fused.reset_launch_counts()
+    kres, kacc = fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells)
+    ks0, ks1 = fdtd_fused.rt60_moments_batch(p, kres.pressure, kres.onset)
+    torch.cuda.synchronize()
+    c14 = counts_of(*sim_fns)
+    _require(c14 == {"fdtd_sim": 0, "fdtd_sim_batch": 1, "rt60_moments": 0,
+                     "rt60_moments_batch": 1, "fdtd_sim_tiled": 0,
+                     "rt60_moments_tiled": 0}, c14)
+    _require(kres.pressure.shape == (nv, p.response_length, p.nx, p.ny)
+             and torch.isfinite(kres.pressure).all(),
+             "batched recording shape or values")
+    rres, racc = fdtd_fused.fdtd_sim_batch_reference(p, beta, refl, pulse,
+                                                     vcells)
+    rs0, rs1 = fdtd_fused.rt60_moments_batch_reference(p, kres.pressure,
+                                                       kres.onset)
+    torch.cuda.synchronize()
+    b1b, b1b_bits = _compare(kres, kacc, rres, racc, "batched B1 vs plain")
+    b2b = {"s0": _rel(ks0, rs0), "s1": _rel(ks1, rs1)}
+    for name, (rel, _) in b2b.items():
+        _require(rel <= MOMENTS_REL_TOL, f"batched B2 {name}: rel {rel}")
+    b2b_bits = torch.equal(ks0, rs0) and torch.equal(ks1, rs1)
+    _require(b1b_bits and b2b_bits,
+             "batched B1/B2 not bit-equal to their plain versions")
+    del rres, racc, rs0, rs1
+    # against four single-listener B1 + B2 passes, kernel against kernel
+    for i, (cx, cy) in enumerate(vcells):
+        sres, sacc = fdtd_fused.fdtd_sim(p, beta, refl, pulse, cx, cy)
+        s0, s1 = fdtd_fused.rt60_moments(p, sres.pressure, sres.onset)
+        _require(all(torch.equal(a, g[i]) for a, g in zip(
+            (*sres, *sacc, s0, s1), (*kres, *kacc, ks0, ks1))),
+            f"batched view {i} differs from its single B1 + B2 pass")
+        del sres, sacc, s0, s1
+    b1b_ms, b1b_plain_ms = _time_pair(
+        lambda: fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells),
+        lambda: fdtd_fused.fdtd_sim_batch_reference(p, beta, refl, pulse,
+                                                    vcells), reps=2)
+    b1b_ms2, b1_singles_ms = _time_pair(
+        lambda: fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells),
+        lambda: [fdtd_fused.fdtd_sim(p, beta, refl, pulse, cx, cy)
+                 for cx, cy in vcells], reps=4)
+    b2b_ms, b2b_plain_ms = _time_pair(
+        lambda: fdtd_fused.rt60_moments_batch(p, kres.pressure, kres.onset),
+        lambda: fdtd_fused.rt60_moments_batch_reference(
+            p, kres.pressure, kres.onset), reps=2)
+    b2b_ms2, b2_singles_ms = _time_pair(
+        lambda: fdtd_fused.rt60_moments_batch(p, kres.pressure, kres.onset),
+        lambda: [fdtd_fused.rt60_moments(p, kres.pressure[i], kres.onset[i])
+                 for i in range(nv)], reps=4)
+    del kres, kacc, ks0, ks1
+    torch.cuda.empty_cache()
+    print(f"phase 14 batched B1 fdtd_sim_batch + B2 rt60_moments_batch, "
+          f"{nv} listeners {vcells} at {shape}: one pass = 1 wrapper call, "
+          f"{p.response_length} kernel launches (not {nv} x "
+          f"{p.response_length}), and 1 B2 launch ({c14}); vs plain max rel "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in {**b1b, **b2b}.items())
+          + f", bit-equal B1 {b1b_bits}, B2 {b2b_bits}; every view bit-equal "
+          f"to its single B1 + B2 pass; B1 batch {b1b_ms:.3f} / "
+          f"{b1b_ms2:.3f} ms vs {nv} single passes {b1_singles_ms:.3f} ms "
+          f"vs plain {b1b_plain_ms:.3f} ms; B2 batch {b2b_ms:.3f} / "
+          f"{b2b_ms2:.3f} ms vs {nv} singles {b2_singles_ms:.3f} ms vs plain "
+          f"{b2b_plain_ms:.3f} ms ({label})", flush=True)
+    print(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # -- 15. the multi-listener main path: Context with four views
+    t_phase = time.perf_counter()
+    positions = [(x, 0.0, z) for x, z in VIEWS]
+    fdtd_fused.reset_launch_counts()
+    vctx = pv.Context(cfg, scene=scene, device="cuda")
+    vctx.set_listener_positions(positions)
+    veids = [vctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    vev, vwall = zip(*(_once(vctx.step) for _ in range(STEPS)))
+    v_launches = counts_of(*sim_fns)
+    _require(v_launches == {"fdtd_sim": 1, "fdtd_sim_batch": STEPS,
+                            "rt60_moments": 0, "rt60_moments_batch": STEPS,
+                            "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0},
+             v_launches)
+    vg = vctx._published
+    _require(vg["occlusion"].shape == (nv, p.grid_x, p.grid_y),
+             "multi-listener grids shape")
+    _require(all(vctx.get_output(e, listener=i).valid
+                 for e in veids for i in range(nv)), "multi outputs")
+    _require(not vctx.result_at(*EMITTERS[0], listener=nv).valid
+             and vctx.get_impulse_response(*EMITTERS[0]).size == 0,
+             "view out of range or recording kept")
+    for k, v in vg.items():
+        if k not in ("listener", "listeners", "delay_samples"):
+            _require(np.isfinite(v).all(), k)
+    # each view equals a single-listener Context at that position
+    solo_ms = []
+    for i, pos in enumerate(positions):
+        one = pv.Context(cfg, scene=scene, device="cuda")
+        one.set_listener_position(*pos)
+        solo_ms.append(_once(one.step)[0])
+        for k in one._published.keys() - {"listener", "pressure"}:
+            np.testing.assert_array_equal(vg[k][i], one._published[k],
+                                          err_msg=f"view {i} {k}")
+        del one
+    # cells publish: every emitter's rows equal the grids publish's
+    cctx = pv.Context(cfg, scene=scene, publish="cells", device="cuda")
+    cctx.set_listener_positions(positions)
+    for x, z in EMITTERS:
+        cctx.emissions.emit(x, 0.0, z)
+    cev, _ = zip(*(_once(cctx.step) for _ in range(STEPS)))
+    crows = cctx._published["cells"]
+    _require(len(crows) == len(EMITTERS), sorted(crows))
+    for (cx, cy), rows in crows.items():
+        for i in range(nv):
+            np.testing.assert_array_equal(
+                rows[i], np.concatenate([np.ravel(vg[k][i, cx, cy])
+                                         for k in ROW_FIELDS]),
+                err_msg=f"view {i} cell ({cx}, {cy})")
+    del vctx, cctx
+    torch.cuda.empty_cache()
+    print(f"phase 15 main path Context(device='cuda') with {nv} listeners "
+          f"{shape}, grids publish: launches {v_launches} (calibration + "
+          f"{STEPS} steps); step median {statistics.median(vev):.3f} ms (CUDA "
+          f"events), {statistics.median(vwall):.3f} ms (wall), steps "
+          + ", ".join(f"{v:.3f}" for v in vev)
+          + f" ms; single-listener steps "
+          + ", ".join(f"{v:.3f}" for v in solo_ms)
+          + f" ms; every view's grids equal the single-listener Context's; "
+          f"cells publish rows equal, step median "
+          f"{statistics.median(cev):.3f} ms ({label})", flush=True)
+    # the large world, cells publish, two views: one B3 + B4 pass a view,
+    # one recording at a time
+    torch.cuda.reset_peak_memory_stats()
+    fdtd_fused.reset_launch_counts()
+    xv = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
+                    device="cuda")
+    xv.set_listener_positions([(x, 0.0, z) for x, z in XL_VIEWS])
+    for x, z in XL_EMITTERS:
+        xv.emissions.emit(x, 0.0, z)
+    xvev, xvwall = zip(*(_once(xv.step) for _ in range(XL_MULTI_STEPS)))
+    xv_launches = counts_of(*sim_fns)
+    nxv = len(XL_VIEWS)
+    _require(xv_launches == {
+        "fdtd_sim": 1, "fdtd_sim_batch": 0, "rt60_moments": 0,
+        "rt60_moments_batch": 0, "fdtd_sim_tiled": nxv * XL_MULTI_STEPS,
+        "rt60_moments_tiled": nxv * XL_MULTI_STEPS}, xv_launches)
+    xv_peak = torch.cuda.max_memory_allocated()
+    xrec_bytes = xp.nx * xp.ny * xp.response_length * 4
+    _require(xv_peak < 1.5 * xrec_bytes,
+             f"peak {xv_peak / 1e9:.2f} GB: more than one "
+             f"{xrec_bytes / 1e9:.2f} GB recording at a time")
+    xv_cells = xv._published["cells"]
+    _require(xv_cells.keys() == xl_rows.keys(), sorted(xv_cells))
+    for cell, rows in xv_cells.items():   # view 0 is phase 9's listener
+        np.testing.assert_array_equal(rows[0], xl_rows[cell],
+                                      err_msg=f"cell {cell}")
+        _require(np.isfinite(rows[1][:8]).all(), (cell, rows[1]))
+    del xv
+    torch.cuda.empty_cache()
+    print(f"phase 15 large world Context({XL:g} m, publish='cells', "
+          f"device='cuda') {xshape} with {nxv} listeners: launches "
+          f"{xv_launches} (calibration + {XL_MULTI_STEPS} steps, one B3 + B4 "
+          f"pass a view); steps " + ", ".join(f"{v:.3f}" for v in xvev)
+          + f" ms (CUDA events), "
+          + ", ".join(f"{v:.3f}" for v in xvwall)
+          + f" ms (wall); peak device memory {xv_peak / 1e9:.2f} GB against "
+          f"one {xrec_bytes / 1e9:.2f} GB recording; view 0's rows equal "
+          f"phase 9's ({label})", flush=True)
+    # the headline on the 2x2 mesh of the card, two views
+    fdtd_fused.reset_launch_counts()
+    mv = pv.Context(cfg, scene=scene, mesh=mesh4)
+    mv.set_listener_positions(positions[:MESH_VIEWS])
+    mvev, mvwall = zip(*(_once(mv.step) for _ in range(STEPS)))
+    mv_launches = counts_of(*sim_fns, solver_fused.sharded_round,
+                            solver_fused.banded_round)
+    mhalo = mv._halo
+    mrounds = -(-p.response_length // mhalo)
+    _require(mv_launches == {
+        "fdtd_sim": 1, "fdtd_sim_batch": 0,
+        "rt60_moments": 4 * MESH_VIEWS * STEPS, "rt60_moments_batch": 0,
+        "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0,
+        "sharded_round": 4 * mrounds * MESH_VIEWS * STEPS,
+        "banded_round": 0}, mv_launches)
+    for k in mv._published.keys() - {"listener", "listeners"}:
+        np.testing.assert_array_equal(mv._published[k], vg[k][:MESH_VIEWS],
+                                      err_msg=k)
+    del mv
+    torch.cuda.empty_cache()
+    print(f"phase 15 mesh Context(mesh=2x2 of cuda:0, halo {mhalo}) "
+          f"{shape} with {MESH_VIEWS} listeners: launches {mv_launches} "
+          f"(calibration + {STEPS} steps); step median "
+          f"{statistics.median(mvev):.3f} ms (CUDA events), "
+          f"{statistics.median(mvwall):.3f} ms (wall); grids equal the "
+          f"single-device views' ({label})", flush=True)
+    print(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # -- 16. bf16 wave state: B1 and B2 kernels, and the Context
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    hres, hacc = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy,
+                                     state_dtype=bf)
+    rres, racc = fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse, lix,
+                                               liy, state_dtype=bf)
+    torch.cuda.synchronize()
+    _require(hres.pressure.dtype == bf and hres.onset.dtype == torch.float32
+             and torch.isfinite(hres.pressure).all(), "bf16 B1 outputs")
+    b1h, b1h_bits = _compare(hres, hacc, rres, racc, "bf16 B1 vs plain")
+    del rres, racc
+    h0, h1 = fdtd_fused.rt60_moments(p, hres.pressure, hres.onset)
+    r0, r1 = fdtd_fused.rt60_moments_reference(p, hres.pressure, hres.onset)
+    torch.cuda.synchronize()
+    b2h = {"s0": _rel(h0, r0), "s1": _rel(h1, r1)}
+    for name, (rel, _) in b2h.items():
+        _require(rel <= MOMENTS_REL_TOL, f"bf16 B2 {name}: rel {rel}")
+    b2h_bits = torch.equal(h0, r0) and torch.equal(h1, r1)
+    # the batched bf16 pass and its moments
+    kres, kacc = fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells,
+                                           state_dtype=bf)
+    rres, racc = fdtd_fused.fdtd_sim_batch_reference(p, beta, refl, pulse,
+                                                     vcells, state_dtype=bf)
+    torch.cuda.synchronize()
+    b1hb, b1hb_bits = _compare(kres, kacc, rres, racc,
+                               "batched bf16 B1 vs plain")
+    _require(all(torch.equal(a, g[0]) for a, g in zip((*hres, *hacc),
+                                                      (*kres, *kacc))),
+             "batched bf16 view 0 differs from the single bf16 pass")
+    del rres, racc
+    k0, k1 = fdtd_fused.rt60_moments_batch(p, kres.pressure, kres.onset)
+    r0, r1 = fdtd_fused.rt60_moments_batch_reference(p, kres.pressure,
+                                                     kres.onset)
+    torch.cuda.synchronize()
+    b2hb_bits = torch.equal(k0, r0) and torch.equal(k1, r1)
+    _require(b1h_bits and b2h_bits and b1hb_bits and b2hb_bits,
+             "bf16 B1/B2 not bit-equal to their plain versions")
+    _require(max(_rel(k0, r0)[0], _rel(k1, r1)[0]) <= MOMENTS_REL_TOL,
+             "batched bf16 B2 vs plain")
+    _require(torch.equal(k0[0], h0) and torch.equal(k1[0], h1),
+             "batched bf16 B2 view 0 differs from the single B2")
+    del kres, kacc, k0, k1, r0, r1
+    torch.cuda.empty_cache()
+    # times: bf16 against its plain version, then against float32 in turns
+    fres, _ = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy)
+    b1h_ms, b1h_plain_ms = _time_pair(
+        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy,
+                                    state_dtype=bf),
+        lambda: fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse, lix, liy,
+                                              state_dtype=bf), reps=2)
+    b1h_ms2, b1f_ms = _time_pair(
+        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy,
+                                    state_dtype=bf),
+        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy), reps=4)
+    b2h_ms, b2h_plain_ms = _time_pair(
+        lambda: fdtd_fused.rt60_moments(p, hres.pressure, hres.onset),
+        lambda: fdtd_fused.rt60_moments_reference(p, hres.pressure,
+                                                  hres.onset), reps=2)
+    b2h_ms2, b2f_ms = _time_pair(
+        lambda: fdtd_fused.rt60_moments(p, hres.pressure, hres.onset),
+        lambda: fdtd_fused.rt60_moments(p, fres.pressure, fres.onset),
+        reps=4)
+    rec16_mb = hres.pressure.numel() * hres.pressure.element_size() / 1e6
+    rec32_mb = fres.pressure.numel() * fres.pressure.element_size() / 1e6
+    del hres, hacc, h0, h1, fres
+    torch.cuda.empty_cache()
+    print(f"phase 16 bf16 B1 fdtd_sim and B2 rt60_moments {shape}: vs plain "
+          f"max rel "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in {**b1h, **b2h}.items())
+          + f", bit-equal B1 {b1h_bits}, B2 {b2h_bits}; batched bf16 "
+          f"({nv} listeners) bit-equal B1 {b1hb_bits}, B2 {b2hb_bits}, view 0 "
+          f"equal to the single pass; B1 bf16 {b1h_ms:.3f} / {b1h_ms2:.3f} ms "
+          f"vs float32 {b1f_ms:.3f} ms vs plain bf16 {b1h_plain_ms:.3f} ms; "
+          f"B2 on the bf16 recording {b2h_ms:.3f} / {b2h_ms2:.3f} ms vs "
+          f"float32 {b2f_ms:.3f} ms vs plain {b2h_plain_ms:.3f} ms; "
+          f"recording {rec16_mb:.1f} MB (float32 {rec32_mb:.1f} MB) "
+          f"({label})", flush=True)
+    # the bf16 Context against the float32 Context at the JAX package's
+    # bf16 bounds: on every cell at that test's setting (SmallRoom, 10 m at
+    # 275 Hz, 435 steps); at the headline (1187 steps) on the emitters'
+    # cells, with every cell's deviations printed
+    pair = {}
+    for precision in ("bf16", "f32"):
+        c = pv.Context(pv.PlaneverbConfig(10.0, 10.0, 275),
+                       scene=pv.demo_scene("SmallRoom"), precision=precision,
+                       device="cuda")
+        c.set_listener_position(5.0, 0.0, 5.0)
+        c.step()
+        pair[precision] = c._published
+        del c
+    small_errs = _param_errs(pair["f32"], pair["bf16"])
+    _within_bf16_bounds(small_errs, "bf16 Context, SmallRoom 10 m at 275 Hz")
+    hctx = pv.Context(cfg, scene=scene, precision="bf16", device="cuda")
+    hctx.set_listener_position(lx, 0.0, lz)
+    heids = [hctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    fdtd_fused.reset_launch_counts()      # after the float32 calibration
+    hev, hwall = zip(*(_once(hctx.step) for _ in range(STEPS)))
+    h_launches = counts_of(*sim_fns)
+    _require(h_launches == {"fdtd_sim": STEPS, "fdtd_sim_batch": 0,
+                            "rt60_moments": STEPS, "rt60_moments_batch": 0,
+                            "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0},
+             h_launches)
+    _require(hctx._published["pressure"].dtype == bf, "bf16 recording")
+    _require(all(hctx.get_output(e).valid for e in heids), "bf16 outputs")
+    hir = hctx.get_impulse_response(lx + 2 * p.dx, lz)
+    _require(hir.dtype == np.float32 and np.abs(hir).max() > 0, "bf16 IR")
+    fctx = pv.Context(cfg, scene=scene, device="cuda")
+    fctx.set_listener_position(lx, 0.0, lz)
+    fctx.step()
+    hg, fg = hctx._published, fctx._published
+    ecells = tuple(np.array(v) for v in zip(*(p.world_to_cell(x, z)
+                                              for x, z in EMITTERS)))
+    emitter_errs = _param_errs({k: fg[k][ecells] for k in ROW_FIELDS},
+                               {k: hg[k][ecells] for k in ROW_FIELDS})
+    _within_bf16_bounds(emitter_errs, "bf16 Context, headline emitters")
+    cell_errs = _param_errs(fg, hg)
+    delay_equal = float((fg["delay_samples"] == hg["delay_samples"]).mean())
+    del hctx, fctx
+    torch.cuda.empty_cache()
+
+    def stats(errs, pcts=False):
+        return ", ".join(
+            f"{k} {e.max():.4g}"
+            + (f"/{np.percentile(e, 99):.4g}/{np.median(e):.4g}" if pcts
+               else "")
+            + f" (bound {BF16_BOUNDS.get(k, BF16_MAX_DEGREES):g})"
+            for k, e in errs.items())
+
+    print(f"phase 16 Context(precision='bf16') vs the float32 Context on the "
+          f"card (relative, directions in degrees): SmallRoom 10 m at 275 Hz, "
+          f"every cell, max {stats(small_errs)}; headline {shape}, the "
+          f"{len(EMITTERS)} emitters' cells, max {stats(emitter_errs)}; "
+          f"every cell, max/p99/median {stats(cell_errs, True)}, delay "
+          f"equal on {delay_equal:.4f} of the cells", flush=True)
+    print(f"phase 16 main path Context(precision='bf16') {shape}: launches "
+          f"{h_launches} ({STEPS} steps after the float32 calibration); step "
+          f"median {statistics.median(hev):.3f} ms (CUDA events), "
+          f"{statistics.median(hwall):.3f} ms (wall) ({label})", flush=True)
+    print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
+
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]
     b3_large = next(r for r in b3.values() if "plain_ms" in r)
+    large = pv.compute_grid_params(pv.PlaneverbConfig(LARGE, LARGE, 750))
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"planeverb_tpu_torch/csrc/{source}",
+                "replaces": f"planeverb_tpu/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
+    def err_of(*dicts):
+        return max(v[1] for d in dicts for v in d.values())
+
+    # no single PyTorch call computes any of these functions, so every
+    # library_ms is null
     print(json.dumps({"kernels": [
-        {"name": "fdtd_sim", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/fdtd_fused.cu",
-         "replaces": "planeverb_tpu/ops/fdtd_pallas.py:104",
-         "launches": launches["fdtd_sim"],
-         "max_abs_err": max(v[1] for v in b1.values()),
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
-        {"name": "rt60_moments", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/fdtd_fused.cu",
-         "replaces": "planeverb_tpu/ops/fdtd_pallas.py:246",
-         "launches": launches["rt60_moments"],
-         "max_abs_err": max(v[1] for v in b2.values()),
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
-        {"name": "fdtd_sim_tiled", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/fdtd_tiled.cu",
-         "replaces": "planeverb_tpu/ops/fdtd_tiled.py:54",
-         "launches": xl_launches["fdtd_sim_tiled"],
-         "max_abs_err": b3_err,
-         "ms": b3_large["ms"], "plain_ms": b3_large["plain_ms"]},
-        {"name": "rt60_moments_tiled", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/fdtd_tiled.cu",
-         "replaces": "planeverb_tpu/ops/fdtd_tiled.py:382",
-         "launches": xl_launches["rt60_moments_tiled"],
-         "max_abs_err": max(v[1] for v in b4_xl["vs_plain"].values()),
-         "ms": b4_xl["ms"], "plain_ms": b4_xl["plain_ms"]},
-        {"name": "sharded_round", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/solver_rounds.cu",
-         "replaces": "planeverb_tpu/parallel/solver_pallas.py:76",
-         "launches": b5_launches,
-         "max_abs_err": max(v[1] for r in b5.values()
-                            for v in r["vs_plain"].values()),
-         "ms": b5[SHARDED_MESHES[0]]["ms"],
-         "plain_ms": b5[SHARDED_MESHES[0]]["plain_ms"]},
-        {"name": "banded_round", "route": "cuda",
-         "source": "planeverb_tpu_torch/csrc/solver_rounds.cu",
-         "replaces": "planeverb_tpu/parallel/solver_pallas.py:221",
-         "launches": b6_launches,
-         "max_abs_err": max(v[1] for v in b6_vs_plain.values()),
-         "ms": b6["ms"], "plain_ms": b6["plain_ms"]},
+        row("fdtd_sim", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
+            launches["fdtd_sim"], err_of(b1), b1_ms, b1_plain_ms,
+            _sim_bound(p)),
+        row("rt60_moments", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
+            launches["rt60_moments"], err_of(b2), b2_ms, b2_plain_ms,
+            _moments_bound(p)),
+        row("fdtd_sim_tiled", "fdtd_tiled.cu", "ops/fdtd_tiled.py:54",
+            xl_launches["fdtd_sim_tiled"], b3_err, b3_large["ms"],
+            b3_large["plain_ms"], _sim_bound(large)),
+        row("rt60_moments_tiled", "fdtd_tiled.cu", "ops/fdtd_tiled.py:382",
+            xl_launches["rt60_moments_tiled"], err_of(b4_xl["vs_plain"]),
+            b4_xl["ms"], b4_xl["plain_ms"], _moments_bound(xp)),
+        row("sharded_round", "solver_rounds.cu",
+            "parallel/solver_pallas.py:76", b5_launches,
+            err_of(*(r["vs_plain"] for r in b5.values())),
+            b5[SHARDED_MESHES[0]]["ms"], b5[SHARDED_MESHES[0]]["plain_ms"],
+            _sim_bound(p)),
+        row("banded_round", "solver_rounds.cu",
+            "parallel/solver_pallas.py:221", b6_launches, err_of(b6_vs_plain),
+            b6["ms"], b6["plain_ms"], _sim_bound(xp)),
+        row("fdtd_sim_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
+            v_launches["fdtd_sim_batch"], err_of(b1b), b1b_ms, b1b_plain_ms,
+            _sim_bound(p, nv)),
+        row("rt60_moments_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
+            v_launches["rt60_moments_batch"], err_of(b2b), b2b_ms,
+            b2b_plain_ms, _moments_bound(p, nv)),
+        row("fdtd_sim bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
+            h_launches["fdtd_sim"], err_of(b1h), b1h_ms, b1h_plain_ms,
+            _sim_bound(p, state_bytes=2)),
+        row("rt60_moments bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
+            h_launches["rt60_moments"], err_of(b2h), b2h_ms, b2h_plain_ms,
+            _moments_bound(p, rec_bytes=2)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,8 +40,17 @@ Publish modes:
     and copied; the packed grid stays on the device and any other probe
     fetches its row on demand.
 
-Several listeners and ``precision="bf16"`` are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+Several listeners (:meth:`Context.set_listener_positions`: split screen,
+multiplayer) run every view in one step and publish them together, with a
+leading [B] axis: up to ``TILED_MIN_CELLS`` cells through the batched B1
+and B2 (``ops/fdtd_fused.py::pipeline_auto_batch``: one B1 launch a step
+and one B2 launch for all views), above it one B3 + B4 pass per view, each
+view's recording freed before the next; on a mesh one sharded pass per
+view. The views' recordings are not published.
+
+``precision="bf16"`` keeps B1's wave state and recording in bf16 (the
+accumulators stay float32); the tiled route and the sharded engine run
+float32.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ from planeverb_tpu_torch.core.free_grid import calibrate_free_field
 from planeverb_tpu_torch.core.geometry import GeometryRegistry
 from planeverb_tpu_torch.ops import voxelize
 from planeverb_tpu_torch.ops.doa import walk_direction
-from planeverb_tpu_torch.ops.fdtd_fused import pipeline_auto
+from planeverb_tpu_torch.ops.fdtd_fused import (pipeline_auto,
+                                               pipeline_auto_batch)
 from planeverb_tpu_torch.parallel.mesh import Mesh, pad_to_mesh
 from planeverb_tpu_torch.parallel.solver import shard_fields
 from planeverb_tpu_torch.parallel.solver_fused import pipeline_sharded
@@ -115,12 +125,6 @@ def _output_from_row(row) -> PlaneverbOutput:
 LAZY_DOA_CELLS = 1 << 20
 
 
-def _unported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to planeverb_tpu_torch yet "
-        f"(ROADMAP.md queue A, item {item}); use planeverb_tpu for it")
-
-
 class Context:
     def __init__(self, config: PlaneverbConfig, scene: Scene | None = None,
                  lazy_directions: bool | None = None,
@@ -151,18 +155,20 @@ class Context:
         publish computes directions on the device, so it refuses
         ``lazy_directions=True``.
 
-        Not ported yet (each raises NotImplementedError):
-        ``precision="bf16"`` and more than one listener
-        (:meth:`set_listener_positions`), with or without a mesh.
+        ``precision="bf16"`` runs B1 with bf16 wave state and recording
+        (the JAX engine's half-precision mode; its parameters stay within
+        the bf16 bounds of the float32 engine's, not bit-equal). Grids
+        above ``TILED_MIN_CELLS`` cells run float32 whatever it is; with a
+        mesh it is refused.
         """
         config.validate()
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"unknown precision {precision!r}")
         if mesh is not None and precision == "bf16":
             raise ValueError("precision='bf16' is single-device only (the "
                              "sharded pipeline runs f32)")
-        if precision == "bf16":
-            raise _unported("Context(precision='bf16')", "A11")
-        if precision != "f32":
-            raise ValueError(f"unknown precision {precision!r}")
+        self._state_dtype = (torch.bfloat16 if precision == "bf16"
+                             else torch.float32)
         if publish not in ("grids", "cells"):
             raise ValueError(f"unknown publish mode {publish!r}")
         self._publish_cells = publish == "cells"
@@ -221,6 +227,7 @@ class Context:
         self._pulse = torch.from_numpy(gaussian_pulse(self.params)).to(
             self.device)
         self._listener = (0.0, 0.0, 0.0)
+        self._listeners_multi: list | None = None
         self._listener_lock = threading.Lock()
         self._coverage_warned = False
         self._coverage_checked = False   # first-step check done?
@@ -277,27 +284,43 @@ class Context:
                 RuntimeWarning, stacklevel=3)
 
     def set_listener_position(self, x: float, y: float, z: float) -> None:
+        """One listener (clears the views of :meth:`set_listener_positions`)."""
         self._warn_if_uncovered(x, z)
         with self._listener_lock:
             self._listener = (x, y, z)
+            self._listeners_multi = None
 
     def get_listener_position(self):
         with self._listener_lock:
             return self._listener
 
     def set_listener_positions(self, positions) -> None:
-        """One listener only in this slice, with or without a mesh: a
-        1-element list is :meth:`set_listener_position`; more raise
-        NotImplementedError."""
+        """B listeners at once: split screen, multiplayer.
+
+        ``step()`` then runs one simulation per view (batched on the card,
+        see the module docstring) and publishes every view's results
+        together: [B, ...] grids on grids publish, the live emitters'
+        [B, 9] rows on cells publish. Query a view with
+        ``result_at(x, z, listener=i)`` or ``get_output(eid, listener=i)``.
+        Works with a mesh too; a 1-element list (or
+        :meth:`set_listener_position`) returns to the single listener.
+        """
         positions = [tuple(float(v) for v in p) for p in positions]
         if not positions:
             raise ValueError("need at least one listener position")
         if any(len(p) != 3 for p in positions):
             raise ValueError("listener positions are (x, y, z) triples")
-        if len(positions) > 1:
-            raise _unported("set_listener_positions with several listeners",
-                            "A9")
-        self.set_listener_position(*positions[0])
+        for px, _, pz in positions:
+            self._warn_if_uncovered(px, pz)
+        with self._listener_lock:
+            self._listener = positions[0]
+            self._listeners_multi = positions if len(positions) > 1 else None
+
+    def get_listener_positions(self) -> list:
+        with self._listener_lock:
+            if self._listeners_multi is not None:
+                return list(self._listeners_multi)
+            return [self._listener]
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> None:
@@ -369,55 +392,88 @@ class Context:
 
     def _step_locked(self) -> None:
         with self._listener_lock:
-            lx, ly, lz = self._listener
+            multi = self._listeners_multi
+            listeners = multi or [self._listener]
         if not self._coverage_checked:
             # a Context stepped with the never-set default listener (a grid
             # corner) still gets the coverage warning
             self._coverage_checked = True
-            self._warn_if_uncovered(lx, lz)
+            for px, _, pz in listeners:
+                self._warn_if_uncovered(px, pz)
         self._sync_fields()
-        cix, ciy = self.params.world_to_cell(lx, lz)
+        views = [(lx, lz) for lx, _, lz in listeners]
         wanted = self._wanted_cells() if self._publish_cells else None
         with self.timer.stage("simulate+analyze"):
-            args = (self.params, self._beta, self._refl, self._pulse, cix,
-                    ciy)
-            rest = (self.efree, float(np.float32(lx)), float(np.float32(lz)))
-            if self.mesh is None:
-                res, out = pipeline_auto(
-                    *args, *rest, compute_directions=not self._lazy_doa)
-            else:
-                res, out = pipeline_sharded(
-                    *args, self.mesh, self._nx_pad, self._ny_pad, *rest,
-                    halo=self._halo, compute_directions=not self._lazy_doa)
-            packed = _pack(out)
+            pressure, packed = self._pass(views, multi is not None)
             # the single host copy: the packed grids, or on cells publish
-            # only the emitters' rows, gathered on the device. It waits for
-            # the device, so this stage times the whole pass, not its enqueue
+            # only the emitters' rows, gathered on the device (with a
+            # leading [B] axis for several views). It waits for the device,
+            # so this stage times the whole pass, not its enqueue
             if wanted is None:
                 fetched = packed.cpu().numpy()
             elif wanted:
                 idx = torch.tensor(wanted, device=packed.device)
-                fetched = packed[idx[:, 0], idx[:, 1]].cpu().numpy()
+                fetched = packed[..., idx[:, 0], idx[:, 1], :].cpu().numpy()
             else:
-                fetched = np.zeros((0, 9), np.float32)  # no emitters
+                fetched = np.zeros((*packed.shape[:-3], 0, 9), np.float32)
                 if packed.is_cuda:
                     torch.cuda.synchronize(packed.device)
         with self.timer.stage("publish"):
-            # the recording stays on the device, exactly [T, nx, ny]; on a
-            # mesh, per shard (the Sharded result)
-            published = {"listener": (lx, lz),
-                         "pressure": res if self.mesh is not None
-                         else res.pressure}
+            published = {"listener": views[0]}
+            if multi is None:
+                # the recording stays on the device, exactly [T, nx, ny]; on
+                # a mesh, per shard (the Sharded result)
+                published["pressure"] = pressure
+            else:
+                published["listeners"] = views
             if wanted is None:
                 published.update(_grids_dict(fetched))
             else:
-                published["cells"] = {cell: fetched[i]
+                # a [9] row per emitter cell, [B, 9] with several views
+                published["cells"] = {cell: fetched[..., i, :]
                                       for i, cell in enumerate(wanted)}
-                published["packed_device"] = packed   # [gx, gy, 9] on device
+                published["packed_device"] = packed   # [(B,) gx, gy, 9]
         self._published = published            # single atomic assignment
         with self._iter_cond:
             self._iteration += 1
             self._iter_cond.notify_all()
+
+    def _pass(self, views, multi: bool):
+        """One pass for every view -> (recording, packed grids): the
+        recording of the single view (per shard on a mesh) and its
+        [gx, gy, 9] grids, or for several views no recording and
+        [B, gx, gy, 9] grids."""
+        p = self.params
+        fields = (p, self._beta, self._refl, self._pulse)
+        cells = [p.world_to_cell(lx, lz) for lx, lz in views]
+        lpos = [(float(np.float32(lx)), float(np.float32(lz)))
+                for lx, lz in views]
+        compute = not self._lazy_doa
+        if self.mesh is None:
+            if multi:
+                out = pipeline_auto_batch(
+                    *fields, cells, self.efree, lpos,
+                    compute_directions=compute,
+                    state_dtype=self._state_dtype)
+                return None, _pack(out)
+            res, out = pipeline_auto(*fields, *cells[0], self.efree,
+                                     *lpos[0], compute_directions=compute,
+                                     state_dtype=self._state_dtype)
+            return res.pressure, _pack(out)
+
+        def sharded(cell, pos):
+            return pipeline_sharded(*fields, *cell, self.mesh, self._nx_pad,
+                                    self._ny_pad, self.efree, *pos,
+                                    halo=self._halo,
+                                    compute_directions=compute)
+
+        if not multi:
+            res, out = sharded(cells[0], lpos[0])
+            return res, _pack(out)
+        # one sharded pass per view; each view's recordings are dropped
+        # before the next view's pass
+        return None, torch.stack([_pack(sharded(cell, pos)[1])
+                                  for cell, pos in zip(cells, lpos)])
 
     def _wanted_cells(self) -> list[tuple[int, int]]:
         """The live emitters' in-grid cells, deduplicated and sorted: the
@@ -443,40 +499,55 @@ class Context:
     def result_at(self, x: float, z: float,
                   listener: int = 0) -> PlaneverbOutput:
         """World position -> acoustic output (GetResponseResult analog,
-        Analyzer.cpp:106-116 + FDTD.cpp:16-58). Only ``listener=0`` exists
-        in this slice; other indices return the invalid sentinel."""
+        Analyzer.cpp:106-116 + FDTD.cpp:16-58).
+
+        ``listener`` selects the view after :meth:`set_listener_positions`;
+        an index out of range returns the invalid sentinel, and a single
+        listener's snapshot answers only ``listener=0``.
+        """
         results = self._published              # one consistent snapshot
-        if results is None or listener != 0:
+        if results is None:
             return invalid_output()
         p = self.params
         cx, cy = p.world_to_cell(x, z)
         if not (0 <= cx < p.grid_x and 0 <= cy < p.grid_y):
             return invalid_output()
+        views = results.get("listeners")
+        n_views = 1 if views is None else len(views)
+        if not 0 <= listener < n_views:
+            return invalid_output()
+        view = () if views is None else (listener,)   # index into [B, ...]
         if "cells" in results:
             cache = results["cells"]
             row = cache.get((cx, cy))
             if row is None:
                 # a probe outside the published emitter set: fetch its row
-                # on demand and memoize it in this snapshot's cache
+                # (every view's) on demand and memoize it in this snapshot's
+                # cache
                 with self._probe_lock:
                     row = cache.get((cx, cy))
                     if row is None:
-                        row = results["packed_device"][cx, cy].cpu().numpy()
+                        row = results["packed_device"][..., cx, cy, :]
+                        row = row.cpu().numpy()
                         cache[(cx, cy)] = row
-            return _output_from_row(row)
+            return _output_from_row(row[view])
+
+        def sel(key):
+            return results[key][view]
+
         if self._lazy_doa:
-            llx, llz = results["listener"]
-            d = walk_direction(p, results["occlusion"],
-                               results["delay_samples"], cx, cy,
-                               llx + p.grid_offset_x, llz + p.grid_offset_y)
+            llx, llz = (views or [results["listener"]])[listener]
+            d = walk_direction(p, sel("occlusion"), sel("delay_samples"),
+                               cx, cy, llx + p.grid_offset_x,
+                               llz + p.grid_offset_y)
         else:
-            d = results["direction"][cx, cy]
-        s = results["source_directivity"][cx, cy]
+            d = sel("direction")[cx, cy]
+        s = sel("source_directivity")[cx, cy]
         return PlaneverbOutput(
-            occlusion=float(results["occlusion"][cx, cy]),
-            wet_gain=float(results["wet_gain"][cx, cy]),
-            rt60=float(results["rt60"][cx, cy]),
-            lowpass=float(results["lowpass"][cx, cy]),
+            occlusion=float(sel("occlusion")[cx, cy]),
+            wet_gain=float(sel("wet_gain")[cx, cy]),
+            rt60=float(sel("rt60")[cx, cy]),
+            lowpass=float(sel("lowpass")[cx, cy]),
             direction=vec2(float(d[0]), float(d[1])),
             source_directivity=vec2(float(s[0]), float(s[1])),
         )
@@ -492,18 +563,23 @@ class Context:
         """Debug IR accessor (Planeverb::GetImpulseResponse analog).
 
         Out-of-grid probes return an empty array — the reference returns
-        null for positions outside the grid (FDTD.cpp:60-70).
+        null for positions outside the grid (FDTD.cpp:60-70) — and so does
+        a snapshot of several listeners, whose recordings are not kept (B
+        of them would multiply the recording memory). The IR is float32
+        (a bf16 recording is cast on the device).
         """
         published = self._published
         if published is None:
             return np.zeros(self.params.response_length, np.float32)
+        if published.get("pressure") is None:
+            return np.zeros(0, np.float32)
         p = self.params
         cx, cy = p.world_to_cell(x, z)
         if not (0 <= cx < p.nx and 0 <= cy < p.ny):
             return np.zeros(0, np.float32)
         if self.mesh is not None:   # the owning shard's recording
             return published["pressure"].at("pressure", cx, cy).cpu().numpy()
-        return published["pressure"][:, cx, cy].cpu().numpy()
+        return published["pressure"][:, cx, cy].float().cpu().numpy()
 
     # --------------------------------------------------------------- admin
     def profile_summary(self) -> dict:
@@ -512,5 +588,11 @@ class Context:
         if pipe:
             from planeverb_tpu_torch.utils.profiling import throughput
 
-            summary["throughput"] = throughput(self.params, pipe["mean_s"])
+            # the stage times the whole step: B passes with several
+            # listeners, so a listener's share is mean / B
+            b = len(self.get_listener_positions())
+            summary["throughput"] = throughput(self.params,
+                                               pipe["mean_s"] / b)
+            if b > 1:
+                summary["throughput"]["listeners"] = b
         return summary

@@ -75,10 +75,17 @@ def _efree_on(params: GridParams, device: torch.device) -> float:
     return float(np.float32(efree) * r)
 
 
-def calibrate_free_field(params: GridParams, device="cpu") -> float:
-    """EFree for this grid configuration, by one simulation on ``device``.
+def calibrate_free_field(params: GridParams, device="cuda") -> float:
+    """EFree for this grid configuration, by one simulation on ``device``
+    (default the card; ``device="cpu"`` runs the plain version). A CUDA
+    device without a card raises: there is no silent move to the CPU.
 
     Uncached: each call runs the calibration sim (one B1 launch on a CUDA
     device), so a Context's calibration is always visible in the kernel's
     launch count."""
-    return _efree_on(_cal_params(params), torch.device(device))
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"calibrate_free_field(device={str(device)!r}): no CUDA device is "
+            f"available; pass device='cpu' to run the plain version")
+    return _efree_on(_cal_params(params), device)

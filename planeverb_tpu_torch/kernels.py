@@ -40,11 +40,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # 7 field planes, pulse, rec, 6 accumulators, 4 velocity buffers,
-    # nx, ny, T, lix, liy, courant, thr, src_dir_n, dry_n, wet_n, stream
-    "pv_fdtd_sim": [_P] * 19 + [_I] * 5 + [_F] * 5 + [_P],
-    # rec, onset, s0, s1, nx, ny, T, dry_n + 1, end, log10_scale, stream
-    "pv_rt60_moments": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
+    # 7 field planes, pulse, rec, accumulators, velocity buffers, [B, 2]
+    # listener cells, nx, ny, T, B, bf16, courant, thr, src_dir_n, dry_n,
+    # wet_n, stream
+    "pv_fdtd_sim": [_P] * 12 + [_I] * 5 + [_F] * 5 + [_P],
+    # rec, onset, s0, s1, nx, ny, T, B, bf16, dry_n + 1, end, log10_scale,
+    # stream
+    "pv_rt60_moments": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
     # 7 field planes, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state
     # slots, nx, ny, T, tile_x, tile_y, k, lix, liy, courant, thr,
     # src_dir_n, dry_n, wet_n, stream

@@ -34,21 +34,28 @@ def on_card(where: str, *tensors: torch.Tensor) -> bool:
     raise ValueError(f"{where}: no kernel and no plain path for device {dev}")
 
 
-def check_field(where: str, name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{where}: {name} must be float32 {tuple(shape)}, "
+def check_field(where: str, name: str, t: torch.Tensor, shape,
+                dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{where}: {name} must be {want} {tuple(shape)}, "
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def moments_shape(where: str, params: GridParams, rec, onset):
+def moments_shape(where: str, params: GridParams, rec, onset,
+                  batched: bool = False, rec_dtypes=(torch.float32,)):
     """(X, Y) of a moments call: any [X, Y] onset (the whole field or one
-    shard of it) with its [T, X, Y] recording."""
-    if onset.dim() != 2:
-        raise ValueError(f"{where}: onset must be 2D, got "
+    shard of it) with its [T, X, Y] recording; ``batched``: a [B, X, Y]
+    onset with its [B, T, X, Y] recordings. ``rec_dtypes`` are the
+    recording types the kernel reads."""
+    lead = 1 if batched else 0
+    if onset.dim() != 2 + lead:
+        raise ValueError(f"{where}: onset must be {2 + lead}D, got "
                          f"{tuple(onset.shape)}")
-    nx, ny = onset.shape
-    check_field(where, "onset", onset, (nx, ny))
-    check_field(where, "rec", rec, (params.response_length, nx, ny))
+    *b, nx, ny = onset.shape
+    check_field(where, "onset", onset, onset.shape)
+    check_field(where, "rec", rec, (*b, params.response_length, nx, ny),
+                rec_dtypes)
     return nx, ny
 
 
@@ -78,10 +85,14 @@ def coefficients(params: GridParams, beta, refl):
 
 
 # ---------------------------------------------------------------- the sims
-def window_scalars(params: GridParams):
+def window_scalars(params: GridParams, state_dtype=torch.float32):
     """(courant, threshold, source-directivity, dry and wet window lengths)
-    as the sim kernels take them."""
-    return (float(np.float32(params.courant)),
+    as the sim kernels take them. The Courant number multiplies the wave
+    state, so it is rounded to the state type: in bf16 that is what JAX
+    does with the Python scalar (a weakly typed bf16 operand), while
+    PyTorch would keep it in float."""
+    courant = torch.tensor(float(np.float32(params.courant)))
+    return (float(courant.to(state_dtype)),
             float(np.float32(params.constants.audible_threshold_gain)),
             float(params.source_dir_samples), float(params.dry_gain_samples),
             float(params.wet_gain_samples))

@@ -28,8 +28,8 @@ CASES = [("SmallRoom", 10.0, 275, (5.0, 5.0)),
 OFFSETS = [(1.5, 0.0), (-1.0, -1.0), (0.5, 1.2)]
 
 
-def _fields(ctx, xs, zs):
-    outs = [[ctx.result_at(x, z) for z in zs] for x in xs]
+def _fields(ctx, xs, zs, listener=0):
+    outs = [[ctx.result_at(x, z, listener=listener) for z in zs] for x in xs]
     return {
         "occlusion": np.array([[o.occlusion for o in r] for r in outs]),
         "wet_gain": np.array([[o.wet_gain for o in r] for r in outs]),
@@ -71,16 +71,18 @@ def test_efree(engines):
     assert abs(t.efree - j.efree) <= 1e-5 * abs(j.efree)
 
 
-def _assert_golden(t, j):
+def _assert_golden(t, j, listener=0):
     """Every cell's published parameters of the port's Context ``t`` held
-    to the JAX Context ``j`` at the golden tolerances."""
+    to the JAX Context ``j`` at the golden tolerances (view ``listener``
+    of several)."""
     p = t.params
     if "delay_samples" in t._published:   # grids publish
-        np.testing.assert_array_equal(t._published["delay_samples"],
-                                      j._published["delay_samples"])
+        view = (listener,) if "listeners" in t._published else ()
+        np.testing.assert_array_equal(t._published["delay_samples"][view],
+                                      j._published["delay_samples"][view])
     xs = [(i + 0.5) * p.dx for i in range(p.grid_x)]
     zs = [(k + 0.5) * p.dx for k in range(p.grid_y)]
-    a, b = _fields(t, xs, zs), _fields(j, xs, zs)
+    a, b = _fields(t, xs, zs, listener), _fields(j, xs, zs, listener)
     np.testing.assert_allclose(a["occlusion"], b["occlusion"], rtol=2e-4,
                                atol=1e-5)
     np.testing.assert_allclose(a["wet_gain"], b["wet_gain"], rtol=2e-4,
@@ -177,27 +179,19 @@ def _port_mesh():
     return grid_mesh(["cpu"] * 4, (2, 2))
 
 
-@pytest.mark.parametrize("case", ["mesh", "halo", "bf16"])
+@pytest.mark.parametrize("case", ["halo"])
 def test_unported_options_raise(case):
     """What is not ported yet raises NotImplementedError naming its ROADMAP
-    item: several listeners on a mesh (A9), the overlapped halo exchange of
-    the sharded rounds (A14) and precision="bf16" (A11)."""
+    item: the overlapped halo exchange of the sharded rounds (A14)."""
     from planeverb_tpu_torch.parallel import simulate_sharded_fused
 
     cfg = tpv.PlaneverbConfig(10.0, 10.0, 275)
+    p = tpv.compute_grid_params(cfg)
+    zeros = torch.zeros((30, 30))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "mesh":
-            ctx = tpv.Context(cfg, mesh=_port_mesh())
-            ctx.set_listener_positions([(5, 0, 5), (3, 0, 3)])
-        elif case == "halo":
-            p = tpv.compute_grid_params(cfg)
-            zeros = torch.zeros((30, 30))
-            simulate_sharded_fused(p, zeros, zeros,
-                                   torch.zeros(p.response_length), 5, 5,
-                                   _port_mesh(), 30, 30, halo=8,
-                                   overlap=True)
-        else:
-            tpv.Context(cfg, device="cpu", precision="bf16")
+        simulate_sharded_fused(p, zeros, zeros,
+                               torch.zeros(p.response_length), 5, 5,
+                               _port_mesh(), 30, 30, halo=8, overlap=True)
 
 
 CFG10 = (10.0, 10.0, 275)
@@ -342,12 +336,176 @@ def test_lazy_doa_default():
     assert jpv.Context(jpv.PlaneverbConfig(400.0, 400.0, 275))._lazy_doa
 
 
-def test_multi_listener_raises():
-    ctx = tpv.Context(tpv.PlaneverbConfig(10.0, 10.0, 275), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        ctx.set_listener_positions([(5, 0, 5), (3, 0, 3)])
-    ctx.set_listener_positions([(4.0, 0.0, 6.0)])
-    assert ctx.get_listener_position() == (4.0, 0.0, 6.0)
+# two listeners inside SmallRoom's walls: split screen
+MULTI = [(5.0, 0.0, 5.0), (4.0, 0.0, 6.0)]
+PROBES = ((6.5, 5.0), (4.0, 5.0), (5.5, 6.0), (3.5, 3.5))
+
+
+def _multi_ctx(mod, positions=MULTI, emit=True, **kwargs):
+    """SmallRoom at 275 Hz with several listeners, emitters at (6.5, 5) and
+    (4, 5), one step; on the CPU for the port."""
+    if mod is tpv:
+        kwargs["device"] = "cpu"
+    ctx = mod.Context(mod.PlaneverbConfig(*CFG10),
+                      scene=mod.demo_scene("SmallRoom"), **kwargs)
+    ctx.set_listener_positions(positions)
+    eids = ([ctx.emissions.emit(6.5, 0.0, 5.0),
+             ctx.emissions.emit(4.0, 0.0, 5.0)] if emit else [])
+    ctx.step()
+    return ctx, eids
+
+
+def _solo(pos, **kwargs):
+    ctx = tpv.Context(tpv.PlaneverbConfig(*CFG10),
+                      scene=tpv.demo_scene("SmallRoom"), device="cpu",
+                      **kwargs)
+    ctx.set_listener_position(*pos)
+    ctx.step()
+    return ctx
+
+
+def test_multi_listener_mode():
+    """Split screen: every view's published grids equal a single-listener
+    Context's at that position, and hold the JAX multi-listener Context's
+    at the golden tolerances; out-of-range views are the sentinel, the
+    recordings are not kept, and one listener restores the single path."""
+    t, te = _multi_ctx(tpv)
+    j, _ = _multi_ctx(jpv)
+    assert t.get_listener_positions() == MULTI
+    assert t.get_listener_position() == MULTI[0]
+    p = t.params
+    assert t._published["occlusion"].shape == (2, p.grid_x, p.grid_y)
+    assert t._published["listeners"] == [(x, z) for x, _, z in MULTI]
+    for i, pos in enumerate(MULTI):
+        solo = _solo(pos)
+        for k in solo._published.keys() - {"listener", "pressure"}:
+            np.testing.assert_array_equal(t._published[k][i],
+                                          solo._published[k], err_msg=k)
+        for e, (x, z) in zip(te, ((6.5, 5.0), (4.0, 5.0))):
+            assert t.get_output(e, listener=i) == solo.result_at(x, z)
+            assert t.get_output(e, listener=i).valid
+        _assert_golden(t, j, listener=i)
+    # the views differ (another listener, another IR)
+    v0, v1 = (t.result_at(6.5, 5.0, listener=i) for i in (0, 1))
+    assert abs(v0.occlusion - v1.occlusion) > 1e-4
+    for bad in (2, -1):
+        assert not t.result_at(6.5, 5.0, listener=bad).valid
+        assert not t.get_output(te[0], listener=bad).valid
+    assert t.get_impulse_response(6.5, 5.0).size == 0
+    tput = t.profile_summary()["throughput"]
+    assert tput["listeners"] == 2
+    assert tput["cell_updates"] == p.nx * p.ny * p.response_length
+
+    t.set_listener_position(5.0, 0.0, 5.0)
+    assert t.get_listener_positions() == [(5.0, 0.0, 5.0)]
+    t.step()
+    assert t.get_impulse_response(6.5, 5.0).shape == (p.response_length,)
+    assert t.result_at(6.5, 5.0).valid
+    assert not t.result_at(6.5, 5.0, listener=1).valid
+
+
+def test_multi_listener_validation():
+    ctx = tpv.Context(tpv.PlaneverbConfig(*CFG10), device="cpu")
+    with pytest.raises(ValueError, match="at least one"):
+        ctx.set_listener_positions([])
+    with pytest.raises(ValueError, match="triples"):
+        ctx.set_listener_positions([(1.0, 2.0)])
+    # a single-element list is just the ordinary listener
+    ctx.set_listener_positions([(4.0, 0.0, 4.0)])
+    assert ctx.get_listener_position() == (4.0, 0.0, 4.0)
+    assert ctx.get_listener_positions() == [(4.0, 0.0, 4.0)]
+    # every view is checked for coverage
+    with pytest.warns(RuntimeWarning, match="only covers"):
+        ctx.set_listener_positions([(5.0, 0.0, 5.0), (-30.0, 0.0, -30.0)])
+    assert len(ctx.get_listener_positions()) == 2
+
+
+def test_multi_listener_cells_publish():
+    """Cells publish with several views: each emitter cell's [B, 9] rows
+    in one copy, equal to the grids publish and within the golden
+    tolerances of the JAX engine's; a probe outside the emitter set
+    fetches every view's row on demand and memoizes it."""
+    c, ce = _multi_ctx(tpv, publish="cells")
+    g, ge = _multi_ctx(tpv, lazy_directions=False)
+    j, je = _multi_ctx(jpv, publish="cells")
+    cells = c._published["cells"]
+    assert len(cells) == 2
+    assert all(row.shape == (2, 9) for row in cells.values())
+    assert c._published["packed_device"].shape == (2, 28, 28, 9)
+    for i in range(2):
+        for a_id, b_id, j_id in zip(ce, ge, je):
+            a = c.get_output(a_id, listener=i)
+            assert a.valid and a == g.get_output(b_id, listener=i)
+            _same_output(a, j.get_output(j_id, listener=i), 2e-4)
+        probe = c.result_at(5.5, 6.0, listener=i)
+        assert probe == g.result_at(5.5, 6.0, listener=i)
+        _same_output(probe, j.result_at(5.5, 6.0, listener=i), 2e-4)
+    assert c.params.world_to_cell(5.5, 6.0) in cells
+    assert not c.result_at(6.5, 5.0, listener=3).valid
+    empty, _ = _multi_ctx(tpv, publish="cells", emit=False)
+    assert empty._published["cells"] == {}
+    assert empty.result_at(6.5, 5.0, listener=1) == g.result_at(
+        6.5, 5.0, listener=1)
+
+
+def test_multi_listener_lazy_directions():
+    """Lazy directions walk each view's own grids from its own listener:
+    the device DOA pass's directions, and the JAX engine's lazy ones."""
+    a, _ = _multi_ctx(tpv, lazy_directions=False)
+    b, _ = _multi_ctx(tpv, lazy_directions=True)
+    jb, _ = _multi_ctx(jpv, lazy_directions=True)
+    assert b._lazy_doa
+    np.testing.assert_array_equal(b._published["direction"], 0.0)
+    for i in range(2):
+        for x, z in PROBES:
+            u = b.result_at(x, z, listener=i)
+            _same_output(a.result_at(x, z, listener=i), u, 1e-6)
+            _same_output(u, jb.result_at(x, z, listener=i), 2e-4)
+
+
+@pytest.mark.parametrize("publish", ["grids", "cells"])
+def test_multi_listener_on_mesh(publish):
+    """Several views on a 2x2 mesh of cpu (one sharded pass per view)
+    publish exactly what the single-device multi-listener Context
+    publishes, and hold the JAX engine's on a 2x2 mesh at the golden
+    tolerances."""
+    import jax
+
+    from planeverb_tpu.parallel import grid_mesh as jax_grid_mesh
+
+    m, me = _multi_ctx(tpv, mesh=_port_mesh(), publish=publish)
+    s, _ = _multi_ctx(tpv, publish=publish)
+    jm, je = _multi_ctx(jpv, mesh=jax_grid_mesh(jax.devices()[:4], (2, 2)),
+                        publish=publish)
+    a, b = m._published, s._published
+    if publish == "grids":
+        for k in a.keys() - {"listener", "listeners"}:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    else:
+        assert a["cells"].keys() == b["cells"].keys() and len(a["cells"])
+        for cell, row in a["cells"].items():
+            np.testing.assert_array_equal(row, b["cells"][cell])
+        assert torch.equal(a["packed_device"], b["packed_device"])
+    assert m.get_impulse_response(6.5, 5.0).size == 0
+    for i in range(2):
+        for e_m, e_j in zip(me, je):
+            _same_output(m.get_output(e_m, listener=i),
+                         jm.get_output(e_j, listener=i), 2e-4)
+        _assert_golden(m, jm, listener=i)
+
+
+def test_multi_listener_tiled_route(monkeypatch):
+    """Above TILED_MIN_CELLS (here 0) the views run one tiled pass each;
+    the published grids equal the batched route's."""
+    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
+
+    batched, _ = _multi_ctx(tpv)
+    monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
+    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
+    tiled, _ = _multi_ctx(tpv)
+    for k in batched._published.keys() - {"listener", "listeners"}:
+        np.testing.assert_array_equal(tiled._published[k],
+                                      batched._published[k], err_msg=k)
 
 
 def test_cuda_without_card_raises():
@@ -357,3 +515,15 @@ def test_cuda_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpv.Context(tpv.PlaneverbConfig(10.0, 10.0, 275))
+
+
+def test_calibrate_without_card_raises():
+    """calibrate_free_field runs on the card unless asked for the CPU."""
+    from planeverb_tpu_torch.core.free_grid import calibrate_free_field
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    p = tpv.compute_grid_params(tpv.PlaneverbConfig(*CFG10))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate_free_field(p)
+    assert calibrate_free_field(p, device="cpu") > 0

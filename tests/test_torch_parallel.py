@@ -394,8 +394,10 @@ def test_context_mesh_errors():
         tpv.Context(cfg, mesh=object(), device="cpu")
     ctx = tpv.Context(cfg, mesh=mesh)
     assert ctx.device == torch.device("cpu") and ctx._halo == 8
-    with pytest.raises(NotImplementedError, match="A9"):
-        ctx.set_listener_positions([(5, 0, 5), (3, 0, 3)])
+    # several listeners on a mesh: one sharded pass per view
+    ctx.set_listener_positions([(5, 0, 5), (4, 0, 6)])
+    assert ctx.get_listener_positions() == [(5.0, 0.0, 5.0),
+                                            (4.0, 0.0, 6.0)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpv.Context(cfg, mesh=grid_mesh(["cuda:0"] * 4, (2, 2)))
