@@ -63,7 +63,18 @@ line per phase:
      state and ``rt60_moments`` / ``rt60_moments_batch`` on the bf16
      recordings against their plain versions, times against float32, and
      ``Context(precision="bf16")`` at the headline against the float32
-     Context at the bf16 parameter bounds.
+     Context at the bf16 parameter bounds;
+ 17. the overlap split of the sharded rounds (``overlap=True``: a frame
+     launch, the frames' exchange, an interior launch a shard and round),
+     on 1D meshes of the one card: B5 at the headline on 4x1 and 2x1 and
+     B6 on the 126 m world's 4x1, all nine outputs bit-equal to the plain
+     rounds' kernels, to B1 + B2 / B3 + B4 and to the plain split, timed
+     against the plain rounds (CUDA events and host enqueue), the 126 m
+     pass's peak device memory under 1.25 recordings (the rows are written
+     in place); then the main path ``Context(mesh=4x1)``, which takes the
+     split: the headline with one and two views (grids equal the
+     single-device Context's) and the 126 m world with cells publish (rows
+     equal phase 9's), launch counts set to 0 before each part.
 
 Then a JSON line with each kernel's (and mode's) launches on its main
 path, error, times and bound, and as the last line
@@ -119,6 +130,11 @@ XL_MULTI_STEPS = 2
 BF16_BOUNDS = {"occlusion": 0.02, "wet_gain": 0.02, "rt60": 0.06,
                "lowpass": 0.005}
 BF16_MAX_DEGREES = 2.0
+# the overlap split (phase 17): 1D meshes of the card at the headline (48-
+# and 96-row shards at halo 16), the 126 m world on the first, and steps of
+# the 126 m Context on it
+OVERLAP_MESHES = ((4, 1), (2, 1))
+XL_SPLIT_STEPS = 2
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): HBM bytes
 # a second, and float32 operations a second outside the tensor cores (the
 # kernels compute in float32, bf16 included)
@@ -206,6 +222,22 @@ def _compare(kres, kacc, rres, racc, what):
     bits = all(torch.equal(a, b) for a, b in zip((*kres, *kacc),
                                                  (*rres, *racc)))
     return out, bits
+
+
+def _enqueue_pair(fn_a, fn_b, reps):
+    """Median host ms to enqueue fn_a and fn_b (from an idle device to the
+    call's return, before the device ends), taken in turns."""
+    import torch
+
+    times = ([], [])
+    for r in range(reps):
+        for i in ((0, 1) if r % 2 else (1, 0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (fn_a, fn_b)[i]()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def _cuda_ms(fn, reps):
@@ -1223,6 +1255,232 @@ def main() -> int:
           f"{statistics.median(hwall):.3f} ms (wall) ({label})", flush=True)
     print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
 
+    # -- 17. the overlap split on 1D meshes of the card
+    t_phase = time.perf_counter()
+    rounds = -(-p.response_length // SHARD_HALO)
+    split_fns = (solver_fused.sharded_round, solver_fused.banded_round,
+                 fdtd_fused.rt60_moments, fdtd_tiled.rt60_moments_tiled)
+    b5o = {}
+    for mshape in OVERLAP_MESHES:
+        fields, (mesh, nx_pad, ny_pad) = sharded_args(p, beta, refl, pulse,
+                                                      mshape)
+        margs = (*fields, lix, liy, mesh, nx_pad, ny_pad)
+        n_shards = mshape[0]
+        fdtd_fused.reset_launch_counts()
+        got = nine(*parallel.simulate_moments_sharded(
+            *margs, halo=SHARD_HALO, overlap=True), p)
+        torch.cuda.synchronize()
+        counts = counts_of(*split_fns)
+        _require(counts == {"sharded_round": rounds * n_shards * 2,
+                            "banded_round": 0, "rt60_moments": n_shards,
+                            "rt60_moments_tiled": 0},
+                 f"B5 split {mshape} launches {counts}")
+        _require(all(torch.isfinite(v).all() for k, v in got.items()
+                     if k != "onset"), f"B5 split {mshape}: not finite")
+        _, rounds_bits = hold(got, nine(*parallel.simulate_moments_sharded(
+            *margs, halo=SHARD_HALO), p), f"B5 split {mshape} vs rounds")
+        _, b1_bits = hold(got, single, f"B5 split {mshape} vs B1 + B2")
+        vs_plain, plain_bits = hold(got, nine(
+            *parallel.simulate_moments_sharded_reference(
+                *margs, halo=SHARD_HALO, overlap=True), p),
+            f"B5 split {mshape} vs plain split")
+        _require(rounds_bits and b1_bits and plain_bits,
+                 f"B5 split {mshape} not bit-equal")
+        del got
+        row = {"vs_plain": vs_plain}
+        row["pass_ms"], row["rounds_ms"] = _time_pair(
+            lambda: parallel.simulate_moments_sharded(
+                *margs, halo=SHARD_HALO, overlap=True),
+            lambda: parallel.simulate_moments_sharded(
+                *margs, halo=SHARD_HALO), reps=5)
+        row["pass_enq"], row["rounds_enq"] = _enqueue_pair(
+            lambda: parallel.simulate_moments_sharded(
+                *margs, halo=SHARD_HALO, overlap=True),
+            lambda: parallel.simulate_moments_sharded(
+                *margs, halo=SHARD_HALO), reps=5)
+        if mshape == OVERLAP_MESHES[0]:
+            row["ms"] = _cuda_ms(lambda: parallel.simulate_sharded_fused(
+                *margs, halo=SHARD_HALO, overlap=True), 3)
+            row["plain_ms"] = _once(
+                lambda: parallel.simulate_sharded_reference(
+                    *margs, halo=SHARD_HALO, overlap=True))[0]
+        bx = nx_pad // mshape[0]
+        print(f"phase 17 B5 split {mshape[0]}x1 mesh of cuda:0 {shape} "
+              f"(shards {bx}x{ny_pad}, halo {SHARD_HALO}: frames 2 x "
+              f"{SHARD_HALO} rows, interior {bx - 2 * SHARD_HALO} rows): "
+              f"launches {counts}; bit-equal to the plain rounds, B1 + B2 "
+              f"and the plain split (max rel vs plain "
+              + ", ".join(f"{k} {v[0]:.3g}" for k, v in vs_plain.items())
+              + f"); pass {row['pass_ms']:.3f} ms vs plain rounds "
+              f"{row['rounds_ms']:.3f} ms (CUDA events, medians of 5 in "
+              f"turns), host enqueue {row['pass_enq']:.3f} vs "
+              f"{row['rounds_enq']:.3f} ms"
+              + (f"; simulation {row['ms']:.3f} ms vs plain split "
+                 f"{row['plain_ms']:.3f} ms" if "ms" in row else "")
+              + f" ({label})", flush=True)
+        b5o[mshape] = row
+    torch.cuda.empty_cache()
+
+    # B6 split: the 126 m world on 4x1 (241 x 964 shards, routed to B6)
+    q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse, XL,
+                                          dev)
+    fields, (mesh, nx_pad, ny_pad) = sharded_args(q, qb, qr, qp,
+                                                  OVERLAP_MESHES[0])
+    margs = (*fields, qx, qy, mesh, nx_pad, ny_pad)
+    xbx = nx_pad // OVERLAP_MESHES[0][0]
+    xrounds = -(-q.response_length // SHARD_HALO)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # held before the pass: its inputs and what earlier phases keep alive
+    split_held = torch.cuda.memory_allocated()
+    fdtd_fused.reset_launch_counts()
+    res, mom = parallel.simulate_moments_sharded(*margs, halo=SHARD_HALO,
+                                                 overlap=True)
+    torch.cuda.synchronize()
+    split_peak = torch.cuda.max_memory_allocated()
+    counts = counts_of(*split_fns)
+    _require(counts == {"sharded_round": 0,
+                        "banded_round": xrounds * 4 * 2, "rt60_moments": 0,
+                        "rt60_moments_tiled": 4},
+             f"B6 split launches {counts}")
+    rec_bytes = q.nx * q.ny * q.response_length * 4
+    _require(split_peak < 1.25 * rec_bytes,
+             f"B6 split peak {split_peak / 1e9:.2f} GB >= 1.25 x the "
+             f"{rec_bytes / 1e9:.2f} GB recording")
+    got = nine(res, mom, q)
+    del res, mom
+    _require(all(torch.isfinite(v).all() for k, v in got.items()
+                 if k != "onset"), "B6 split: not finite")
+    _, rounds_bits = hold(got, nine(*parallel.simulate_moments_sharded(
+        *margs, halo=SHARD_HALO), q), "B6 split vs rounds")
+    torch.cuda.empty_cache()
+    tres, tmom = fdtd_tiled.simulate_moments_tiled(q, qb, qr, qp, qx, qy)
+    _, b3_bits = hold(got, {**tres._asdict(), **tmom._asdict()},
+                      "B6 split vs B3 + B4")
+    del tres, tmom
+    torch.cuda.empty_cache()
+    b6o_vs_plain, plain_bits = hold(got, nine(
+        *parallel.simulate_moments_sharded_reference(
+            *margs, halo=SHARD_HALO, overlap=True), q),
+        "B6 split vs plain split")
+    _require(rounds_bits and b3_bits and plain_bits,
+             "B6 split not bit-equal")
+    del got
+    torch.cuda.empty_cache()
+    b6o = {}
+    b6o["ms"], b6o["rounds_ms"] = _time_pair(
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO,
+                                                overlap=True),
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
+        reps=3)
+    b6o["enq"], b6o["rounds_enq"] = _enqueue_pair(
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO,
+                                                overlap=True),
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
+        reps=3)
+    b6o["plain_ms"] = _once(lambda: parallel.simulate_sharded_reference(
+        *margs, halo=SHARD_HALO, overlap=True))[0]
+    torch.cuda.empty_cache()
+    print(f"phase 17 B6 split {xshape} on a 4x1 mesh of cuda:0 (shards "
+          f"{xbx}x{ny_pad}, halo {SHARD_HALO}: interior "
+          f"{xbx - 2 * SHARD_HALO} rows): launches {counts}; peak device "
+          f"memory of the pass {split_peak / 1e9:.2f} GB ("
+          f"{split_held / 1e9:.2f} GB held before it) against one "
+          f"{rec_bytes / 1e9:.2f} GB recording; bit-equal to the plain "
+          f"banded rounds, B3 + B4 and the plain split (max rel vs plain "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in b6o_vs_plain.items())
+          + f"); simulation {b6o['ms']:.3f} ms vs plain banded rounds "
+          f"{b6o['rounds_ms']:.3f} ms (CUDA events, medians of 3 in turns), "
+          f"host enqueue {b6o['enq']:.3f} vs {b6o['rounds_enq']:.3f} ms; "
+          f"plain split {b6o['plain_ms']:.3f} ms (one pass) ({label})",
+          flush=True)
+
+    # the main path on a 4x1 mesh: Context at the headline, which takes the
+    # split (48-row shards, halo 16), one view and then two
+    mesh41 = parallel.grid_mesh(["cuda:0"] * 4, OVERLAP_MESHES[0])
+    ctx_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch, *split_fns)
+    fdtd_fused.reset_launch_counts()
+    sctx = pv.Context(cfg, scene=scene, mesh=mesh41)
+    _require(sctx._overlap and sctx._halo == SHARD_HALO,
+             f"Context on 4x1: overlap {sctx._overlap}, halo {sctx._halo}")
+    sctx.set_listener_position(lx, 0.0, lz)
+    seids = [sctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    sev, swall = zip(*(_once(sctx.step) for _ in range(STEPS)))
+    s_launches = counts_of(*ctx_fns)
+    _require(s_launches == {"fdtd_sim": 1, "fdtd_sim_batch": 0,
+                            "sharded_round": 4 * rounds * 2 * STEPS,
+                            "banded_round": 0, "rt60_moments": 4 * STEPS,
+                            "rt60_moments_tiled": 0}, s_launches)
+    one = pv.Context(cfg, scene=scene, device="cuda")
+    one.set_listener_position(lx, 0.0, lz)
+    one.step()
+    sg, og = sctx._published, one._published
+    for k in sg.keys() - {"listener", "pressure"}:
+        np.testing.assert_array_equal(sg[k], og[k], err_msg=k)
+    np.testing.assert_array_equal(
+        sctx.get_impulse_response(lx + 2 * p.dx, lz),
+        one.get_impulse_response(lx + 2 * p.dx, lz))
+    _require(all(sctx.get_output(e).valid for e in seids), "4x1 outputs")
+    b5o_launches = s_launches["sharded_round"]
+    del sctx, one
+    fdtd_fused.reset_launch_counts()
+    sv = pv.Context(cfg, scene=scene, mesh=mesh41)
+    sv.set_listener_positions(positions[:MESH_VIEWS])
+    svev, _ = zip(*(_once(sv.step) for _ in range(2)))
+    sv_launches = counts_of(*ctx_fns)
+    _require(sv_launches == {
+        "fdtd_sim": 1, "fdtd_sim_batch": 0,
+        "sharded_round": 4 * rounds * 2 * MESH_VIEWS * 2, "banded_round": 0,
+        "rt60_moments": 4 * MESH_VIEWS * 2, "rt60_moments_tiled": 0},
+        sv_launches)
+    for k in sv._published.keys() - {"listener", "listeners"}:
+        np.testing.assert_array_equal(sv._published[k], vg[k][:MESH_VIEWS],
+                                      err_msg=k)
+    del sv
+    print(f"phase 17 main path Context(mesh=4x1 of cuda:0, halo "
+          f"{SHARD_HALO}: the split) {shape}: launches {s_launches} "
+          f"(calibration + {STEPS} steps: 2 round launches a shard and "
+          f"round); step median {statistics.median(sev):.3f} ms (CUDA "
+          f"events), {statistics.median(swall):.3f} ms (wall), steps "
+          + ", ".join(f"{v:.3f}" for v in sev)
+          + f" ms; grids and impulse response equal the single-device "
+          f"Context's; {MESH_VIEWS} views: launches {sv_launches} (2 steps), "
+          f"steps " + ", ".join(f"{v:.3f}" for v in svev)
+          + f" ms, grids equal the single-device views' ({label})",
+          flush=True)
+    # ... and the 126 m world on the same mesh, cells publish (the B6 split)
+    fdtd_fused.reset_launch_counts()
+    xs = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
+                    mesh=mesh41)
+    _require(xs._overlap, "126 m Context on 4x1 must take the split")
+    xs.set_listener_position(xl_lx, 0.0, xl_lz)
+    for x, z in XL_EMITTERS:
+        xs.emissions.emit(x, 0.0, z)
+    xsev, xswall = zip(*(_once(xs.step) for _ in range(XL_SPLIT_STEPS)))
+    xs_launches = counts_of(*ctx_fns)
+    _require(xs_launches == {
+        "fdtd_sim": 1, "fdtd_sim_batch": 0, "sharded_round": 0,
+        "banded_round": 4 * xrounds * 2 * XL_SPLIT_STEPS,
+        "rt60_moments": 0, "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
+        xs_launches)
+    xs_cells = xs._published["cells"]
+    _require(xs_cells.keys() == xl_rows.keys(), sorted(xs_cells))
+    for cell, row in xs_cells.items():
+        np.testing.assert_array_equal(row, xl_rows[cell],
+                                      err_msg=f"cell {cell}")
+    b6o_launches = xs_launches["banded_round"]
+    del xs
+    torch.cuda.empty_cache()
+    print(f"phase 17 main path Context({XL:g} m, publish='cells', mesh=4x1 "
+          f"of cuda:0: the B6 split) {xshape}: launches {xs_launches} "
+          f"(calibration + {XL_SPLIT_STEPS} steps); steps "
+          + ", ".join(f"{v:.3f}" for v in xsev) + " ms (CUDA events), "
+          + ", ".join(f"{v:.3f}" for v in xswall)
+          + f" ms (wall); emitter rows equal phase 9's ({label})",
+          flush=True)
+    print(f"phase 17 seconds: {time.perf_counter() - t_phase:.1f}")
+
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]
     b3_large = next(r for r in b3.values() if "plain_ms" in r)
@@ -1274,6 +1532,15 @@ def main() -> int:
         row("rt60_moments bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
             h_launches["rt60_moments"], err_of(b2h), b2h_ms, b2h_plain_ms,
             _moments_bound(p, rec_bytes=2)),
+        row("B5 overlap", "solver_rounds.cu",
+            "parallel/solver_pallas.py:550", b5o_launches,
+            err_of(*(r["vs_plain"] for r in b5o.values())),
+            b5o[OVERLAP_MESHES[0]]["ms"], b5o[OVERLAP_MESHES[0]]["plain_ms"],
+            _sim_bound(p)),
+        row("B6 overlap", "solver_rounds.cu",
+            "parallel/solver_pallas.py:798", b6o_launches,
+            err_of(b6o_vs_plain), b6o["ms"], b6o["plain_ms"],
+            _sim_bound(xp)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

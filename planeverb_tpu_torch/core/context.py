@@ -27,8 +27,11 @@ the mesh and sharded over it, and each shard advances in rounds of
 ``halo`` steps between ghost exchanges, one B5 (``sharded_round``) or, for
 shards above ``TILED_MIN_CELLS`` cells, one B6 (``banded_round``) launch
 per shard and round (``csrc/solver_rounds.cu``); its moments come from B2
-or B4 on its own recording. The published grids equal the single-device
-step's bit for bit.
+or B4 on its own recording. On a 1D ("x", N) mesh the rounds take the
+overlap split when the shards hold it (``_overlap``): per shard and round a
+frame launch, the frames' exchange, and an interior launch that does not
+wait for it. The published grids equal the single-device step's bit for
+bit.
 
 Publish modes:
 
@@ -143,7 +146,16 @@ class Context:
         steps between ghost exchanges; the default halo is the largest
         power of two up to 16 that fits a shard. Calibration runs on the
         mesh's first device, and the published grids equal the
-        single-device Context's.
+        single-device Context's. On a 1D ("x", N) mesh with N > 1 whose
+        shards have at least 3 * halo rows the step takes the overlap
+        split of the rounds (``_overlap``, the JAX Context's rule), which
+        publishes the same bits. The rule reads the shard rows bx of this
+        Context's padding: the field is padded to a multiple of the mesh
+        only, where the JAX Context pads to a multiple of 8 shards' worth
+        (its banded kernel's DMA alignment), so the two may decide apart.
+        At 25 m and 275 Hz (71 x 71 cells) on an (8, 1) mesh with halo 4,
+        JAX pads to 128 rows (bx 16: the split) and this Context to 72 (bx
+        9: the plain rounds); the results are equal either way.
 
         ``publish`` picks the per-step result transfer: ``"grids"`` copies
         the packed [gx, gy, 9] grids to the host; ``"cells"`` copies only
@@ -220,6 +232,11 @@ class Context:
                 raise ValueError(f"halo {halo} exceeds per-shard block "
                                  f"({bx}, {by})")
             self._halo = int(halo)
+            # the JAX Context's rule: the overlap split on every 1D ("x", N)
+            # mesh whose shards hold its frames; bit-equal to the plain
+            # rounds, so users never choose
+            self._overlap = (mesh.shape["y"] == 1 and mesh.shape["x"] > 1
+                             and bx >= 3 * self._halo)
         self.geometry = GeometryRegistry()
         self.emissions = EmissionRegistry()
         self.timer = StageTimer()
@@ -465,7 +482,8 @@ class Context:
             return pipeline_sharded(*fields, *cell, self.mesh, self._nx_pad,
                                     self._ny_pad, self.efree, *pos,
                                     halo=self._halo,
-                                    compute_directions=compute)
+                                    compute_directions=compute,
+                                    overlap=self._overlap)
 
         if not multi:
             res, out = sharded(cells[0], lpos[0])

@@ -2,9 +2,12 @@
 // round of the sharded engine on one shard.
 //
 // B5 `sharded_round` replaces
-// planeverb_tpu/parallel/solver_pallas.py::_round_kernel.
+// planeverb_tpu/parallel/solver_pallas.py::_round_kernel, in the plain
+// rounds and in the overlap split's frame and interior launches
+// (_overlap_impl).
 // B6 `banded_round` replaces
-// planeverb_tpu/parallel/solver_pallas.py::_banded_round_kernel.
+// planeverb_tpu/parallel/solver_pallas.py::_banded_round_kernel, likewise
+// (_overlap_banded_impl).
 //
 // A shard owns a bx x by interior of the global field. Before each round the
 // host exchanges ghosts, so the kernel reads the shard's extended block: the
@@ -14,7 +17,20 @@
 // pre-injection pressure into rows [t0, t0 + nsteps) of the shard's
 // [T, bx, by] recording, streams its six accumulators (onset, flux,
 // windowed energies; updated in place) and writes the interior's new state
-// (p after this round's last injection, vx, vy) to a new [3, bx, by] buffer.
+// (p after this round's last injection, vx, vy) into a [3, bx, by] buffer.
+//
+// Row windows (the overlap split): a launch may advance only `rows` of the
+// shard's bx rows, in one or two windows on blockIdx.z. Window z is an
+// extended block of rows + 2 kx rows, stacked after window z - 1 in the
+// planes and state arrays; its interior lands on rows row0 + z * out_stride
+// of the shard's recording, accumulators and new state, in place, and its
+// global row origin (B6) moves by the same z * out_stride. The split's frame
+// launch is two windows of 3k rows ([ghost k | rows 0:2k] and
+// [rows bx-2k:bx | ghost k], k rows each, out_stride bx - k); its interior
+// launch one window of the shard's bx rows advancing rows [k, bx - k). So
+// the launches of a round fill disjoint rows of one recording, and nothing
+// is concatenated after them. The plain round is one window with
+// rows = bx and row0 = 0.
 //
 // No SM holds a shard's extended planes, so the kernel tiles the interior
 // as fdtd_tiled.cu's B3 round does: a block owns a tile_x x tile_y interior
@@ -72,19 +88,23 @@ constexpr int kMaxThreads = 1024;
 constexpr int kPlanes = 11;
 constexpr int kAccPlanes = 6;  // onset, fx, fy, ed, ew, et of the tile
 
+// ex = rows + 2 kx, ey = by + 2 ky, nwin = gridDim.z windows
 struct Round {
-  const float* __restrict__ planes;  // B5: [8][ex*ey]; B6: [2][ex*ey]
-  const float* __restrict__ state;   // [3][ex*ey]: extended p, vx, vy
+  const float* __restrict__ planes;  // B5: [8][nwin*ex*ey]; B6: [2][...]
+  const float* __restrict__ state;   // [3][nwin*ex*ey]: extended p, vx, vy
   const float* __restrict__ pulse;   // [T]
-  float* __restrict__ rec;           // [T][bx*by]
+  float* __restrict__ rec;           // [T][bx*by], rows written in place
   float* __restrict__ acc;           // [6][bx*by], in place
-  float* __restrict__ state_out;     // [3][bx*by]: p, vx, vy
-  int bx, by;                        // interior
-  int kx, ky;                        // ghost widths of the extended block
+  float* __restrict__ state_out;     // [3][bx*by]: p, vx, vy, in place
+  int rows, by;                      // interior of each window
+  int kx, ky;                        // ghost widths of each window
+  int bx;                            // the shard's rows (output arrays)
+  int row0, out_stride;              // window z's rows start at
+                                     // row0 + z * out_stride
   int t0, nsteps, halo;              // first step, steps, window border
   int tile_x, tile_y;
-  // B6 only: global coordinates of extended cell (0, 0), the listener, the
-  // analysis grid's edges and the boundary type
+  // B6 only: global coordinates of window 0's extended cell (0, 0), the
+  // listener, the analysis grid's edges and the boundary type
   int gi0, gj0, lix, liy, gx, gy, absorbing;
   float courant, thr, src_dir_n, dry_n, wet_n;
 };
@@ -121,10 +141,16 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
   float* a_ew = a_ed + tcells;
   float* a_et = a_ew + tcells;
 
-  const int ex = r.bx + 2 * r.kx;  // extended block
+  const int ex = r.rows + 2 * r.kx;  // this window's extended block
   const int ey = r.by + 2 * r.ky;
-  const int64_t eplane = (int64_t)ex * ey;
+  const int z = (int)blockIdx.z;       // the row window
+  const int64_t wplane = (int64_t)ex * ey;
+  const int64_t eplane = wplane * gridDim.z;  // a plane of every window
+  const float* __restrict__ planes = r.planes + z * wplane;
+  const float* __restrict__ state = r.state + z * wplane;
   const int64_t iplane = (int64_t)r.bx * r.by;
+  const int orow = r.row0 + z * r.out_stride;  // shard row of interior row 0
+  const int gi0 = r.gi0 + z * r.out_stride;    // B6: global row of ext row 0
   const int ti0 = blockIdx.y * r.tile_x;  // tile origin, interior coords
   const int tj0 = blockIdx.x * r.tile_y;
   const int ei0 = ti0 + r.kx - h;         // window origin, extended coords
@@ -138,28 +164,28 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
     const int ej = ej0 + w % wy;
     const bool in = ei >= 0 && ei < ex && ej >= 0 && ej < ey;
     const int64_t g = (int64_t)ei * ey + ej;
-    sp[w] = in ? r.state[g] : 0.0f;
-    svx[w] = in ? r.state[eplane + g] : 0.0f;
-    svy[w] = in ? r.state[2 * eplane + g] : 0.0f;
-    sbeta[w] = in ? r.planes[g] : 0.0f;
+    sp[w] = in ? state[g] : 0.0f;
+    svx[w] = in ? state[eplane + g] : 0.0f;
+    svy[w] = in ? state[2 * eplane + g] : 0.0f;
+    sbeta[w] = in ? planes[g] : 0.0f;
     if (kFold) {
-      s11[w] = in ? r.planes[eplane + g] : 0.0f;
+      s11[w] = in ? planes[eplane + g] : 0.0f;
     } else {
-      sax[w] = in ? r.planes[1 * eplane + g] : 0.0f;
-      sbx[w] = in ? r.planes[2 * eplane + g] : 0.0f;
-      sdx[w] = in ? r.planes[3 * eplane + g] : 0.0f;
-      say[w] = in ? r.planes[4 * eplane + g] : 0.0f;
-      sby[w] = in ? r.planes[5 * eplane + g] : 0.0f;
-      sdy[w] = in ? r.planes[6 * eplane + g] : 0.0f;
-      s11[w] = in ? r.planes[7 * eplane + g] : 0.0f;
+      sax[w] = in ? planes[1 * eplane + g] : 0.0f;
+      sbx[w] = in ? planes[2 * eplane + g] : 0.0f;
+      sdx[w] = in ? planes[3 * eplane + g] : 0.0f;
+      say[w] = in ? planes[4 * eplane + g] : 0.0f;
+      sby[w] = in ? planes[5 * eplane + g] : 0.0f;
+      sdy[w] = in ? planes[6 * eplane + g] : 0.0f;
+      s11[w] = in ? planes[7 * eplane + g] : 0.0f;
     }
   }
   // -- and the tile's accumulators
   for (int w = tid; w < tcells; w += nthreads) {
     const int ii = ti0 + w / r.tile_y;
     const int jj = tj0 + w % r.tile_y;
-    const bool in = ii < r.bx && jj < r.by;
-    const int64_t g = (int64_t)ii * r.by + jj;
+    const bool in = ii < r.rows && jj < r.by;
+    const int64_t g = (int64_t)(orow + ii) * r.by + jj;
     a_on[w] = in ? r.acc[g] : INFINITY;
     a_fx[w] = in ? r.acc[iplane + g] : 0.0f;
     a_fy[w] = in ? r.acc[2 * iplane + g] : 0.0f;
@@ -189,7 +215,7 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
       const float a_y = beta * b_ym;
       const float bc_y = w_y * beta;
       const float d_y = w_y * b_ym;
-      const int gi = r.gi0 + ei0 + wi;
+      const int gi = gi0 + ei0 + wi;
       const int gj = r.gj0 + ej0 + wj;
       const bool row0 = gi == 0;
       const bool rowg = gi == r.gx;
@@ -228,7 +254,7 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
       const int c = i * wy + j;
       float pv = sp[c];
       if (s > 0) {
-        const float src = kFold ? ((r.gi0 + ei0 + i == r.lix &&
+        const float src = kFold ? ((gi0 + ei0 + i == r.lix &&
                                     gj_src == r.liy) ? 1.0f : 0.0f)
                                 : s11[c];
         pv = pv + src * inj;
@@ -263,7 +289,7 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
       svx[c] = vx;
       svy[c] = vy;
       if (col_interior && i >= h && i < h + r.tile_x &&
-          ti0 + i - h < r.bx) {
+          ti0 + i - h < r.rows) {
         const int a = (i - h) * r.tile_y + (j - h);
         const float onset = fminf(a_on[a], fabsf(p) > r.thr ? tf : INFINITY);
         const float mp = (onset > c_flux) ? p : 0.0f;
@@ -274,7 +300,7 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
         if (onset > c_dry) a_ed[a] = a_ed[a] + sq;
         if (onset <= c_wet_lo && onset > c_wet_hi) a_ew[a] = a_ew[a] + sq;
         a_et[a] = a_et[a] + sq;
-        rec_t[(int64_t)(ti0 + i - h) * r.by + (tj0 + j - h)] = p;
+        rec_t[(int64_t)(orow + ti0 + i - h) * r.by + (tj0 + j - h)] = p;
       }
     }
     __syncthreads();
@@ -286,10 +312,10 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
   for (int w = tid; w < tcells; w += nthreads) {
     const int ii = w / r.tile_y;
     const int jj = w % r.tile_y;
-    if (ti0 + ii >= r.bx || tj0 + jj >= r.by) continue;
-    const int64_t g = (int64_t)(ti0 + ii) * r.by + (tj0 + jj);
+    if (ti0 + ii >= r.rows || tj0 + jj >= r.by) continue;
+    const int64_t g = (int64_t)(orow + ti0 + ii) * r.by + (tj0 + jj);
     const int c = (ii + h) * wy + (jj + h);
-    const float src = kFold ? ((r.gi0 + ei0 + ii + h == r.lix &&
+    const float src = kFold ? ((gi0 + ei0 + ii + h == r.lix &&
                                 r.gj0 + ej0 + jj + h == r.liy) ? 1.0f : 0.0f)
                             : s11[c];
     r.state_out[g] = sp[c] + src * inj;
@@ -315,7 +341,7 @@ int set_smem(const void* kernel, size_t bytes) {
 }
 
 template <bool kFold>
-int launch_round(const Round& r, void* stream) {
+int launch_round(const Round& r, int nwin, void* stream) {
   const int wx = r.tile_x + 2 * r.halo;
   const int wy = r.tile_y + 2 * r.halo;
   // one thread per window column, as many row strides as fit; a window the
@@ -324,7 +350,7 @@ int launch_round(const Round& r, void* stream) {
   const int rows = kMaxThreads / wy;
   const dim3 block(wy, rows < 1 ? 1 : (rows < wx ? rows : wx));
   const dim3 grid((r.by + r.tile_y - 1) / r.tile_y,
-                  (r.bx + r.tile_x - 1) / r.tile_x);
+                  (r.rows + r.tile_x - 1) / r.tile_x, nwin);
   const size_t smem = round_smem_bytes(r.tile_x, r.tile_y, r.halo);
   const int err = set_smem((const void*)round_kernel<kFold>, smem);
   if (err != 0) return err;
@@ -335,30 +361,33 @@ int launch_round(const Round& r, void* stream) {
 
 }  // namespace
 
+// rows, nwin, bx, row0, out_stride: the row windows above (the plain round:
+// rows = bx, nwin = 1, row0 = out_stride = 0)
 extern "C" int pv_sharded_round(
     const float* planes, const float* state, const float* pulse,
-    float* rec, float* acc, float* state_out, int bx, int by, int kx,
-    int ky, int t0, int nsteps, int halo, int tile_x, int tile_y,
-    float courant, float thr, float src_dir_n, float dry_n, float wet_n,
-    void* stream) {
+    float* rec, float* acc, float* state_out, int rows, int by, int kx,
+    int ky, int nwin, int bx, int row0, int out_stride, int t0, int nsteps,
+    int halo, int tile_x, int tile_y, float courant, float thr,
+    float src_dir_n, float dry_n, float wet_n, void* stream) {
   const Round r{planes, state,  pulse,  rec,    acc,     state_out,
-                bx,     by,     kx,     ky,     t0,      nsteps,
-                halo,   tile_x, tile_y, 0,      0,       0,
-                0,      0,      0,      0,      courant, thr,
-                src_dir_n, dry_n, wet_n};
-  return launch_round<false>(r, stream);
+                rows,   by,     kx,     ky,     bx,      row0,
+                out_stride,     t0,     nsteps, halo,    tile_x,
+                tile_y, 0,      0,      0,      0,       0,
+                0,      0,      courant, thr,   src_dir_n, dry_n, wet_n};
+  return launch_round<false>(r, nwin, stream);
 }
 
 extern "C" int pv_banded_round(
     const float* fields, const float* state, const float* pulse,
-    float* rec, float* acc, float* state_out, int bx, int by, int k,
-    int t0, int nsteps, int tile_x, int tile_y, int gi0, int gj0, int lix,
-    int liy, int gx, int gy, int absorbing, float courant, float thr,
-    float src_dir_n, float dry_n, float wet_n, void* stream) {
-  const Round r{fields, state,  pulse,  rec,       acc,     state_out,
-                bx,     by,     k,      k,         t0,      nsteps,
-                k,      tile_x, tile_y, gi0,       gj0,     lix,
-                liy,    gx,     gy,     absorbing, courant, thr,
-                src_dir_n, dry_n, wet_n};
-  return launch_round<true>(r, stream);
+    float* rec, float* acc, float* state_out, int rows, int by, int k,
+    int nwin, int bx, int row0, int out_stride, int t0, int nsteps,
+    int tile_x, int tile_y, int gi0, int gj0, int lix, int liy, int gx,
+    int gy, int absorbing, float courant, float thr, float src_dir_n,
+    float dry_n, float wet_n, void* stream) {
+  const Round r{fields, state,  pulse,  rec,    acc,     state_out,
+                rows,   by,     k,      k,      bx,      row0,
+                out_stride,     t0,     nsteps, k,       tile_x,
+                tile_y, gi0,    gj0,    lix,    liy,     gx,
+                gy,     absorbing, courant, thr, src_dir_n, dry_n, wet_n};
+  return launch_round<true>(r, nwin, stream);
 }

@@ -54,14 +54,15 @@ _SIGNATURES = {
     # rec, onset, s0, s1, nx, ny, T, chunk, dry_n + 1, end, log10_scale,
     # stream
     "pv_rt60_moments_tiled": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
-    # 8 folded planes, extended p/vx/vy, pulse, rec, acc, state_out, bx,
-    # by, kx, ky, t0, nsteps, halo, tile_x, tile_y, courant, thr,
-    # src_dir_n, dry_n, wet_n, stream
-    "pv_sharded_round": [_P] * 6 + [_I] * 9 + [_F] * 5 + [_P],
-    # beta/Y planes, extended p/vx/vy, pulse, rec, acc, state_out, bx, by,
-    # k, t0, nsteps, tile_x, tile_y, gi0, gj0, lix, liy, gx, gy,
-    # absorbing, courant, thr, src_dir_n, dry_n, wet_n, stream
-    "pv_banded_round": [_P] * 6 + [_I] * 14 + [_F] * 5 + [_P],
+    # 8 folded planes, extended p/vx/vy, pulse, rec, acc, state_out, rows,
+    # by, kx, ky, nwin, bx, row0, out_stride, t0, nsteps, halo, tile_x,
+    # tile_y, courant, thr, src_dir_n, dry_n, wet_n, stream
+    "pv_sharded_round": [_P] * 6 + [_I] * 13 + [_F] * 5 + [_P],
+    # beta/Y planes, extended p/vx/vy, pulse, rec, acc, state_out, rows,
+    # by, k, nwin, bx, row0, out_stride, t0, nsteps, tile_x, tile_y, gi0,
+    # gj0, lix, liy, gx, gy, absorbing, courant, thr, src_dir_n, dry_n,
+    # wet_n, stream
+    "pv_banded_round": [_P] * 6 + [_I] * 18 + [_F] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -1,14 +1,18 @@
 """Sharded engine: fused rounds (B5) and banded rounds (B6) between ghost
 exchanges.
 
-Counterpart of ``planeverb_tpu/parallel/solver_pallas.py``, without its
-overlap split. The field is padded to the mesh (beta = 0, silent) and cut
-into [bx, by] shards. A pass runs in rounds of k = ``halo`` steps (the last
-round has T - t0): before each round every shard's state is extended by
-ghosts from its neighbours (``parallel/solver.py::_exchange_axes``), then
-each shard advances its extended block alone. Two kernels, each with its
-hand-written CUDA kernel (``csrc/solver_rounds.cu``) and a plain PyTorch
-version:
+Counterpart of ``planeverb_tpu/parallel/solver_pallas.py``. The field is
+padded to the mesh (beta = 0, silent) and cut into [bx, by] shards. A pass
+runs in rounds of k = ``halo`` steps (the last round has T - t0): before
+each round every shard's state is extended by ghosts from its neighbours
+(``parallel/solver.py::_exchange_axes``), then each shard advances its
+extended block alone. With ``overlap=True`` on a 1D ("x", N) mesh, each
+round is split instead (:func:`_overlap_rounds`): a frame launch advances
+the shard's top and bottom k rows, their new rows are exchanged, and an
+interior launch that does not wait for the exchange advances the rest.
+Two kernels, each with its hand-written CUDA kernel
+(``csrc/solver_rounds.cu``) and a plain PyTorch version, both taking row
+windows for the split:
 
   - :func:`sharded_round` (B5, replaces ``solver_pallas.py::_round_kernel``):
     per-axis ghosts (k on a sharded axis, 0 on an unsharded one, whose
@@ -70,7 +74,8 @@ from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
                                           fdtd_step_folded,
                                           stencil_coefficients)
 from planeverb_tpu_torch.parallel.mesh import Mesh
-from planeverb_tpu_torch.parallel.solver import (_exchange_axes, assemble,
+from planeverb_tpu_torch.parallel.solver import (_exchange_axes,
+                                                 _exchange_frames, assemble,
                                                  shard_fields)
 
 __all__ = ["Sharded", "ROUND_TILES", "pick_round_tile", "fold_planes",
@@ -125,15 +130,17 @@ def round_smem_bytes(tile, halo: int) -> int:
     return ((tx + 2 * halo) * (ty + 2 * halo) * 11 + tx * ty * 6) * 4
 
 
-def pick_round_tile(bx: int, by: int, halo: int, n_sm: int):
+def pick_round_tile(bx: int, by: int, halo: int, n_sm: int,
+                    windows: int = 1):
     """The tile of :data:`ROUND_TILES` with the least modelled round time on
-    a [bx, by] shard and a card with ``n_sm`` SMs: waves of blocks (one
-    block per SM) times the cells of a window, as
-    ``fdtd_tiled.pick_tile``. Tiles whose window exceeds shared memory are
-    skipped; with none left the smallest stays, and its launch raises."""
+    a [bx, by] shard (or ``windows`` row windows of bx rows) and a card with
+    ``n_sm`` SMs: waves of blocks (one block per SM) times the cells of a
+    window, as ``fdtd_tiled.pick_tile``. Tiles whose window exceeds shared
+    memory are skipped; with none left the smallest stays, and its launch
+    raises."""
     def cost(tile):
         tx, ty = tile
-        blocks = -(-bx // tx) * -(-by // ty)
+        blocks = windows * -(-bx // tx) * -(-by // ty)
         return -(-blocks // n_sm) * (tx + 2 * halo) * (ty + 2 * halo)
 
     fits = [t for t in ROUND_TILES
@@ -178,94 +185,141 @@ def _nsteps(params: GridParams, t0: int, halo: int) -> int:
 
 
 def _check_round(where, params, t0, halo, kx, ky, pulse, planes, n_planes,
-                 state_e, acc, rec) -> bool:
-    """Argument checks of a round wrapper; True where it launches."""
+                 state_e, acc, rec, row0, windows, out_stride, out):
+    """Argument checks of a round wrapper. Returns (True where it launches,
+    the rows each window advances)."""
     T = params.response_length
     if not 0 <= t0 < T or halo < 1:
         raise ValueError(f"{where}: need 0 <= t0 < T ({t0}, {T}) and "
                          f"halo >= 1 ({halo})")
-    if acc.dim() != 3:
-        raise ValueError(f"{where}: acc must be [6, bx, by], got "
-                         f"{tuple(acc.shape)}")
+    if acc.dim() != 3 or state_e.dim() != 3:
+        raise ValueError(f"{where}: acc must be [6, bx, by] and state_e "
+                         f"[3, rows, cols], got {tuple(acc.shape)} and "
+                         f"{tuple(state_e.shape)}")
+    if windows not in (1, 2) or state_e.shape[1] % windows:
+        raise ValueError(f"{where}: windows must be 1 or 2 and divide "
+                         f"state_e's {state_e.shape[1]} rows, got {windows}")
     bx, by = acc.shape[-2:]
-    ext = (bx + 2 * kx, by + 2 * ky)
+    rows = state_e.shape[1] // windows - 2 * kx
+    end = row0 + (windows - 1) * out_stride + rows
+    if (rows < 1 or row0 < 0 or end > bx
+            or (windows == 2 and out_stride < rows)):
+        raise ValueError(f"{where}: {windows} window(s) of {rows} rows from "
+                         f"shard row {row0} (stride {out_stride}) must be "
+                         f"disjoint and within the shard's {bx} rows")
+    ext = (windows * (rows + 2 * kx), by + 2 * ky)
     check_field(where, "pulse", pulse, (T,))
     check_field(where, "planes", planes, (n_planes, *ext))
     check_field(where, "state_e", state_e, (3, *ext))
     check_field(where, "acc", acc, (6, bx, by))
     check_field(where, "rec", rec, (T, bx, by))
-    card = on_card(where, pulse, planes, state_e, acc, rec)
-    if card and not (acc.is_contiguous() and rec.is_contiguous()):
-        raise ValueError(f"{where}: acc and rec must be contiguous (the "
+    written = (acc, rec)
+    if out is not None:
+        check_field(where, "out", out, (3, bx, by))
+        written += (out,)
+    card = on_card(where, pulse, planes, state_e, *written)
+    if card and not all(t.is_contiguous() for t in written):
+        raise ValueError(f"{where}: acc, rec and out must be contiguous (the "
                          f"kernel writes them in place)")
-    return card
+    return card, rows
+
+
+def _window_rows(z: int, row0: int, out_stride: int, rows: int) -> slice:
+    """The shard rows window ``z`` advances."""
+    r = row0 + z * out_stride
+    return slice(r, r + rows)
 
 
 # ------------------------------------------------------------ B5 rounds
 def sharded_round_reference(params: GridParams, t0: int, halo: int, kx: int,
-                            ky: int, pulse, planes, state_e, acc, rec):
-    """Plain version of B5: ``fdtd_step_folded`` on the whole extended
-    block, on any device. Arguments and returns as :func:`sharded_round`.
-    """
+                            ky: int, pulse, planes, state_e, acc, rec,
+                            row0: int = 0, windows: int = 1,
+                            out_stride: int = 0, out=None):
+    """Plain version of B5: ``fdtd_step_folded`` on each window's whole
+    extended block, on any device. Arguments and returns as
+    :func:`sharded_round`."""
     scalars = window_scalars(params)
-    beta, *coefs, src = planes.unbind(0)
-    p, vx, vy = state_e.unbind(0)
     bx, by = acc.shape[-2:]
-    inner = (slice(kx, kx + bx), slice(ky, ky + by))
-    a = tuple(acc.unbind(0))
-    for t in range(t0, t0 + _nsteps(params, t0, halo)):
-        p, vx, vy = fdtd_step_folded(p, vx, vy, beta, coefs, scalars[0])
-        a = stream_step(t, p[inner], vx[inner], vy[inner], a, scalars)
-        rec[t] = p[inner]   # record pre-injection, then inject
-        p = p + src * pulse[t]
-    acc.copy_(torch.stack(a))
-    return torch.stack([p[inner], vx[inner], vy[inner]])
+    ex = state_e.shape[1] // windows
+    rows = ex - 2 * kx
+    if out is None:
+        out = torch.empty((3, bx, by), dtype=torch.float32, device=acc.device)
+    inner = (slice(kx, kx + rows), slice(ky, ky + by))
+    for z in range(windows):
+        r = _window_rows(z, row0, out_stride, rows)
+        w = slice(z * ex, (z + 1) * ex)
+        beta, *coefs, src = planes[:, w].unbind(0)
+        p, vx, vy = state_e[:, w].unbind(0)
+        a = tuple(acc[:, r].unbind(0))
+        for t in range(t0, t0 + _nsteps(params, t0, halo)):
+            p, vx, vy = fdtd_step_folded(p, vx, vy, beta, coefs, scalars[0])
+            a = stream_step(t, p[inner], vx[inner], vy[inner], a, scalars)
+            rec[t, r] = p[inner]   # record pre-injection, then inject
+            p = p + src * pulse[t]
+        acc[:, r] = torch.stack(a)
+        out[:, r] = torch.stack([p[inner], vx[inner], vy[inner]])
+    return out
 
 
 @counted
 def sharded_round(params: GridParams, t0: int, halo: int, kx: int, ky: int,
-                  pulse, planes, state_e, acc, rec, tile=None):
-    """One round of one shard on its extended block (B5).
+                  pulse, planes, state_e, acc, rec, tile=None, row0: int = 0,
+                  windows: int = 1, out_stride: int = 0, out=None):
+    """One round of one shard on its extended block (B5), or on row windows
+    of it (the overlap split's frames and interior).
 
     Args:
       t0: the round's first step; it runs min(halo, T - t0) steps.
       halo: k, the round length and the kernel's window border.
       kx, ky: the extended block's ghost widths (0 on an unsharded axis).
       pulse: [T] source pulse.
-      planes: [8, bx + 2kx, by + 2ky] from :func:`fold_planes`.
-      state_e: [3, bx + 2kx, by + 2ky] the extended p, vx, vy, p after
-        the previous round's injection (zeros before the first round).
+      planes: [8, bx + 2kx, by + 2ky] from :func:`fold_planes`; with row
+        windows, each window's extended block of rows + 2kx rows, stacked:
+        [8, windows * (rows + 2kx), by + 2ky].
+      state_e: [3, ...] the extended p, vx, vy in the planes' layout, p
+        after the previous round's injection (zeros before the first
+        round).
       acc: [6, bx, by] onset, flux_x, flux_y, e_dry, e_wet, e_total of the
-        interior, updated in place.
-      rec: [T, bx, by] recording; rows [t0, t0 + nsteps) are written.
+        shard, the windows' rows updated in place.
+      rec: [T, bx, by] the shard's recording; rows [t0, t0 + nsteps) of the
+        windows' shard rows are written.
       tile: the kernel's interior tile (default :func:`pick_round_tile`'s);
         the results do not depend on it.
-    Returns the interior's new state, [3, bx, by]: p (after the round's
-    last injection), vx, vy.
+      row0, windows, out_stride: ``windows`` (1 or 2) row windows; window z
+        advances shard rows [row0 + z * out_stride, + rows). The default,
+        one window from row 0, is the plain round on the whole shard.
+      out: [3, bx, by] buffer of the new state, written on the windows'
+        rows (default: a new tensor).
+    Returns ``out``: the new p (after the round's last injection), vx, vy.
     """
     where = "sharded_round"
     t0, halo, kx, ky = int(t0), int(halo), int(kx), int(ky)
-    if not _check_round(where, params, t0, halo, kx, ky, pulse, planes, 8,
-                        state_e, acc, rec):
+    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
+    card, rows = _check_round(where, params, t0, halo, kx, ky, pulse, planes,
+                              8, state_e, acc, rec, row0, windows,
+                              out_stride, out)
+    if not card:
         return sharded_round_reference(params, t0, halo, kx, ky, pulse,
-                                       planes, state_e, acc, rec)
+                                       planes, state_e, acc, rec, row0,
+                                       windows, out_stride, out)
     bx, by = acc.shape[-2:]
     dev = acc.device
     tx, ty = _tile(tile) if tile is not None else pick_round_tile(
-        bx, by, halo,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        rows, by, halo,
+        torch.cuda.get_device_properties(dev).multi_processor_count, windows)
     planes = planes.contiguous()
     state_e = state_e.contiguous()
     pulse = pulse.contiguous()
-    out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pv_sharded_round(
             planes.data_ptr(), state_e.data_ptr(),
             pulse.data_ptr(), rec.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), bx, by, kx, ky, t0,
-            _nsteps(params, t0, halo), halo, tx, ty,
+            out.data_ptr(), rows, by, kx, ky, windows, bx, row0, out_stride,
+            t0, _nsteps(params, t0, halo), halo, tx, ty,
             *window_scalars(params), stream)
     kernels.check(err, where)
     sharded_round.launches += 1
@@ -274,101 +328,123 @@ def sharded_round(params: GridParams, t0: int, halo: int, kx: int, ky: int,
 
 # ------------------------------------------------------------ B6 rounds
 def banded_round_reference(params: GridParams, t0: int, halo: int, pulse,
-                           fields, geo, state_e, acc, rec, tile=None):
-    """Plain version of B6: the kernel's windows (tile plus a halo-cell
-    border, zeros beyond the extended block) batched, each folding its own
-    coefficients and listener mask, ``fdtd_step_folded`` on all of them;
-    on any device. Arguments and returns as :func:`banded_round` (default
-    tile: the first of :data:`ROUND_TILES`)."""
+                           fields, geo, state_e, acc, rec, tile=None,
+                           row0: int = 0, windows: int = 1,
+                           out_stride: int = 0, out=None):
+    """Plain version of B6: per row window, the kernel's tile windows
+    (tile plus a halo-cell border, zeros beyond the extended block)
+    batched, each folding its own coefficients and listener mask,
+    ``fdtd_step_folded`` on all of them; on any device. Arguments and
+    returns as :func:`banded_round` (default tile: the first of
+    :data:`ROUND_TILES`)."""
     k = halo
     tx, ty = _tile(ROUND_TILES[0] if tile is None else tile)
     bx, by = acc.shape[-2:]
-    ntx, nty = -(-bx // tx), -(-by // ty)
+    ex = state_e.shape[1] // windows
+    rows = ex - 2 * k
+    ntx, nty = -(-rows // tx), -(-by // ty)
     gi0, gj0, lix, liy = (int(v) for v in geo)
     scalars = window_scalars(params)
     dev = acc.device
+    if out is None:
+        out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
 
-    def windows(x):
-        # [bx + 2k, by + 2k] -> [ntx * nty, tx + 2k, ty + 2k], window (a, b)
-        # at extended cell (a * tx, b * ty)
-        x = F.pad(x, (0, nty * ty - by, 0, ntx * tx - bx))
+    def cut(x):
+        # [rows + 2k, by + 2k] -> [ntx * nty, tx + 2k, ty + 2k], tile
+        # window (a, b) at extended cell (a * tx, b * ty)
+        x = F.pad(x, (0, nty * ty - by, 0, ntx * tx - rows))
         return (x.unfold(0, tx + 2 * k, tx).unfold(1, ty + 2 * k, ty)
                 .reshape(ntx * nty, tx + 2 * k, ty + 2 * k))
 
     def tiles(x):
-        x = F.pad(x, (0, nty * ty - by, 0, ntx * tx - bx))
+        x = F.pad(x, (0, nty * ty - by, 0, ntx * tx - rows))
         return (x.reshape(ntx, tx, nty, ty).permute(0, 2, 1, 3)
                 .reshape(ntx * nty, tx, ty))
 
     def untile(x):
         return (x.reshape(ntx, nty, tx, ty).permute(0, 2, 1, 3)
-                .reshape(ntx * tx, nty * ty)[:bx, :by])
+                .reshape(ntx * tx, nty * ty)[:rows, :by])
 
-    beta_w, y_w = windows(fields[0]), windows(fields[1])
     n = torch.arange(ntx * nty, device=dev)
-    gi = ((gi0 + (n // nty) * tx).view(-1, 1, 1)
-          + torch.arange(tx + 2 * k, device=dev).view(1, -1, 1))
-    gj = ((gj0 + (n % nty) * ty).view(-1, 1, 1)
-          + torch.arange(ty + 2 * k, device=dev).view(1, 1, -1))
-    coefs = stencil_coefficients(
-        beta_w, y_w, F.pad(beta_w[:, :-1], (0, 0, 1, 0)),
-        F.pad(y_w[:, :-1], (0, 0, 1, 0)), F.pad(beta_w[..., :-1], (1, 0)),
-        F.pad(y_w[..., :-1], (1, 0)), gi, gj, params.grid_x, params.grid_y,
-        params.boundary_type == BoundaryType.ABSORBING)
-    src = ((gi == lix) & (gj == liy)).to(torch.float32)
-
-    pw, vxw, vyw = (windows(s) for s in state_e.unbind(0))
-    a = tuple(tiles(x) for x in acc.unbind(0))
     inner = (slice(None), slice(k, k + tx), slice(k, k + ty))
-    for t in range(t0, t0 + _nsteps(params, t0, halo)):
-        pw, vxw, vyw = fdtd_step_folded(pw, vxw, vyw, beta_w, coefs,
-                                        scalars[0])
-        a = stream_step(t, pw[inner], vxw[inner], vyw[inner], a, scalars)
-        rec[t] = untile(pw[inner])
-        pw = pw + src * pulse[t]
-    acc.copy_(torch.stack([untile(x) for x in a]))
-    return torch.stack([untile(w[inner]) for w in (pw, vxw, vyw)])
+    for z in range(windows):
+        r = _window_rows(z, row0, out_stride, rows)
+        w = slice(z * ex, (z + 1) * ex)
+        beta_w, y_w = cut(fields[0, w]), cut(fields[1, w])
+        gi = ((gi0 + z * out_stride + (n // nty) * tx).view(-1, 1, 1)
+              + torch.arange(tx + 2 * k, device=dev).view(1, -1, 1))
+        gj = ((gj0 + (n % nty) * ty).view(-1, 1, 1)
+              + torch.arange(ty + 2 * k, device=dev).view(1, 1, -1))
+        coefs = stencil_coefficients(
+            beta_w, y_w, F.pad(beta_w[:, :-1], (0, 0, 1, 0)),
+            F.pad(y_w[:, :-1], (0, 0, 1, 0)),
+            F.pad(beta_w[..., :-1], (1, 0)), F.pad(y_w[..., :-1], (1, 0)),
+            gi, gj, params.grid_x, params.grid_y,
+            params.boundary_type == BoundaryType.ABSORBING)
+        src = ((gi == lix) & (gj == liy)).to(torch.float32)
+
+        pw, vxw, vyw = (cut(s) for s in state_e[:, w].unbind(0))
+        a = tuple(tiles(x) for x in acc[:, r].unbind(0))
+        for t in range(t0, t0 + _nsteps(params, t0, halo)):
+            pw, vxw, vyw = fdtd_step_folded(pw, vxw, vyw, beta_w, coefs,
+                                            scalars[0])
+            a = stream_step(t, pw[inner], vxw[inner], vyw[inner], a,
+                            scalars)
+            rec[t, r] = untile(pw[inner])
+            pw = pw + src * pulse[t]
+        acc[:, r] = torch.stack([untile(x) for x in a])
+        out[:, r] = torch.stack([untile(v[inner]) for v in (pw, vxw, vyw)])
+    return out
 
 
 @counted
 def banded_round(params: GridParams, t0: int, halo: int, pulse, fields,
-                 geo, state_e, acc, rec, tile=None):
-    """One round of one shard on its extended block, folding in the round
-    (B6).
+                 geo, state_e, acc, rec, tile=None, row0: int = 0,
+                 windows: int = 1, out_stride: int = 0, out=None):
+    """One round of one shard on its extended block, or on row windows of
+    it, folding in the round (B6).
 
     Arguments and returns as :func:`sharded_round`, with symmetric ghosts
     ``halo`` on both axes, and:
       fields: [2, bx + 2k, by + 2k] beta and admittance Y of the extended
-        block.
-      geo: (gi0, gj0, lix, liy): the global coordinates of extended cell
-        (0, 0) and of the listener.
+        block (with row windows, the windows' blocks stacked, as
+        ``state_e``).
+      geo: (gi0, gj0, lix, liy): the global coordinates of window 0's
+        extended cell (0, 0) (window z's is z * out_stride rows further) and
+        of the listener.
       tile: the interior tile of the kernel and of the plain version's
         windows (the results do not depend on it).
     """
     where = "banded_round"
     t0, halo = int(t0), int(halo)
-    if not _check_round(where, params, t0, halo, halo, halo, pulse, fields,
-                        2, state_e, acc, rec):
+    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
+    card, rows = _check_round(where, params, t0, halo, halo, halo, pulse,
+                              fields, 2, state_e, acc, rec, row0, windows,
+                              out_stride, out)
+    if not card:
         return banded_round_reference(params, t0, halo, pulse, fields, geo,
-                                      state_e, acc, rec, tile)
+                                      state_e, acc, rec, tile, row0, windows,
+                                      out_stride, out)
     bx, by = acc.shape[-2:]
     dev = acc.device
     tx, ty = _tile(tile) if tile is not None else pick_round_tile(
-        bx, by, halo,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        rows, by, halo,
+        torch.cuda.get_device_properties(dev).multi_processor_count, windows)
     gi0, gj0, lix, liy = (int(v) for v in geo)
     fields = fields.contiguous()
     state_e = state_e.contiguous()
     pulse = pulse.contiguous()
-    out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pv_banded_round(
             fields.data_ptr(), state_e.data_ptr(),
             pulse.data_ptr(), rec.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), bx, by, halo, t0, _nsteps(params, t0, halo),
-            tx, ty, gi0, gj0, lix, liy, params.grid_x, params.grid_y,
+            out.data_ptr(), rows, by, halo, windows, bx, row0, out_stride,
+            t0, _nsteps(params, t0, halo), tx, ty, gi0, gj0, lix, liy,
+            params.grid_x, params.grid_y,
             int(params.boundary_type == BoundaryType.ABSORBING),
             *window_scalars(params), stream)
     kernels.check(err, where)
@@ -428,56 +504,30 @@ def _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
     return out, (None if mom is None else Sharded(Moments, one(mom)))
 
 
-def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
-                   mesh: Mesh, nx_pad: int, ny_pad: int, halo: int,
-                   band_rows, overlap: bool, reference: bool,
-                   with_moments: bool):
-    if overlap:
-        raise NotImplementedError(
-            "overlap=True (the boundary-first split of the sharded rounds) "
-            "is not ported to planeverb_tpu_torch yet (ROADMAP.md queue A, "
-            "item A14); the plain rounds give the same bits")
-    mx, my = mesh.shape["x"], mesh.shape["y"]
-    if (nx_pad % mx or ny_pad % my or nx_pad < params.nx
-            or ny_pad < params.ny):
-        raise ValueError(f"padded field ({nx_pad}, {ny_pad}) must cover "
-                         f"({params.nx}, {params.ny}) and divide over the "
-                         f"{mx}x{my} mesh (see pad_to_mesh)")
-    bx, by = nx_pad // mx, ny_pad // my
-    k = int(halo)
-    if not 1 <= k <= min(bx, by):
-        raise ValueError(f"halo {k} exceeds shard block ({bx}, {by}) or is "
-                         f"below 1")
-    beta_b = _blocks(mesh, "beta", beta, nx_pad, ny_pad)
-    refl_b = _blocks(mesh, "refl", refl, nx_pad, ny_pad)
-    T = params.response_length
-    check_field("sharded", "pulse", pulse, (T,))
-    lix, liy = int(lix), int(liy)
-    if not (0 <= lix < params.nx and 0 <= liy < params.ny):
-        lix = liy = _NOWHERE    # a listener outside the field injects nothing
-    banded = (band_rows is not None
-              or bx * by > fdtd_fused.TILED_MIN_CELLS)
-    if banded and mx == my == 1 and band_rows is None:
-        return _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
-                                   nx_pad, ny_pad, reference, with_moments)
-
+def _round_tile(mesh: Mesh, band_rows, rows: int, by: int, k: int,
+                windows: int = 1):
+    """The interior tile of a shard's round launches: ``band_rows``'s
+    square when given, :func:`pick_round_tile`'s on a card, else the first
+    of :data:`ROUND_TILES` (the plain B6's windows)."""
     if band_rows is not None:
-        tile = (int(band_rows), int(band_rows))
-    elif mesh.device_type == "cuda":
-        tile = pick_round_tile(bx, by, k, torch.cuda.get_device_properties(
-            mesh.first_device).multi_processor_count)
-    else:
-        tile = ROUND_TILES[0]
+        return int(band_rows), int(band_rows)
+    if mesh.device_type == "cuda":
+        return pick_round_tile(rows, by, k, torch.cuda.get_device_properties(
+            mesh.first_device).multi_processor_count, windows)
+    return ROUND_TILES[0]
+
+
+def _plain_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by, k,
+                  band_rows, banded, reference):
+    """The plain rounds: every round, each shard's state is extended by its
+    neighbours' ghosts and advanced by one B5 or B6 launch on the whole
+    extended block. Returns the (rec, acc) block grids."""
+    mx, my = mesh.shape["x"], mesh.shape["y"]
+    T = params.response_length
+    tile = _round_tile(mesh, band_rows, bx, by, k)
     kx, ky = (k, k) if banded else (k if mx > 1 else 0, k if my > 1 else 0)
-    y_b = [[admittance(r) for r in row] for row in refl_b]
     beta_e = _exchange_axes(beta_b, kx, ky)
     y_e = _exchange_axes(y_b, kx, ky)
-    pulses = {}
-
-    def pulse_on(dev):
-        if dev not in pulses:
-            pulses[dev] = pulse.to(dev)
-        return pulses[dev]
 
     if banded:
         statics = [[torch.stack([b, y]) for b, y in zip(*rows)]
@@ -514,6 +564,154 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
         ext = _exchange_axes(state, kx, ky)
         state = [[run(i, j, t0, ext[i][j]) for j in range(my)]
                  for i in range(mx)]
+    return rec, acc
+
+
+def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
+                    k, band_rows, banded, reference):
+    """The overlap split of the rounds on a 1D ("x", N) mesh with bx >= 3k,
+    counterpart of ``solver_pallas.py::_overlap_impl`` (B5) and
+    ``_overlap_banded_impl`` (B6). Per round and shard
+    (``solver_pallas.py:489-521``):
+
+      1. one frame launch advances the shard's top and bottom k rows in two
+         3k-row windows, [top ghost k | rows 0:2k] and [rows bx-2k:bx |
+         bottom ghost k], from the round-start state and last round's
+         ghosts (zeros in round 0: the field is at rest);
+      2. the new frames are exchanged (``solver.py::_exchange_frames``),
+         which depends only on step 1;
+      3. the interior launch advances rows [k, bx - k) from the round-start
+         state itself, a window of the shard's bx rows whose frame rows are
+         its fringe; it does not wait for the exchange.
+
+    Both launches write their rows of the shard's one recording,
+    accumulators and new state in place (the row windows of
+    :func:`sharded_round` / :func:`banded_round`), so nothing is
+    concatenated after them, and each cell goes through the plain rounds'
+    ops: the split is bit-equal to them. B5's windows read slices of the
+    planes folded on the [bx + 2k, by] extended block (y is unsharded);
+    B6's read beta and Y with symmetric ghosts (zero columns on a 1D mesh)
+    and fold from ``geo``: frames from global row px*bx - k (then bx - k
+    rows further), the interior from px*bx. The windows' statics are made
+    contiguous once per simulation. Returns the (rec, acc) block grids.
+    """
+    T = params.response_length
+    devs = [row[0] for row in mesh.devices]
+    ky = k if banded else 0
+    beta_e = _exchange_axes(beta_b, k, ky)
+    y_e = _exchange_axes(y_b, k, ky)
+
+    def split(x):
+        # [P, bx + 2k, cols] -> (the frames' two 3k-row windows stacked,
+        # [P, 6k, cols]; the interior's, [P, bx, cols])
+        return (torch.cat([x[:, :3 * k], x[:, bx - k:]], dim=1),
+                x[:, k:k + bx].contiguous())
+
+    if banded:
+        statics = [split(torch.stack([b, y])) for (b,), (y,) in
+                   zip(beta_e, y_e)]
+    else:
+        statics = [split(fold_planes(params, b, y, i * bx - k, 0, lix, liy))
+                   for i, ((b,), (y,)) in enumerate(zip(beta_e, y_e))]
+    # the launches' row windows (0: the frames, 1: the interior) and tiles
+    wins = ({"row0": 0, "windows": 2, "out_stride": bx - k}, {"row0": k})
+    tiles = (_round_tile(mesh, band_rows, k, by, k, 2),
+             _round_tile(mesh, band_rows, bx - 2 * k, by, k))
+
+    def launch(i, t0, w, state_w, out):
+        pulse = pulse_on(devs[i])
+        if banded:
+            geo = (i * bx - k if w == 0 else i * bx, -k, lix, liy)
+            fn = banded_round_reference if reference else banded_round
+            fn(params, t0, k, pulse, statics[i][w], geo,
+               F.pad(state_w, (k, k)), acc[i], rec[i], tiles[w], out=out,
+               **wins[w])
+        elif reference:
+            sharded_round_reference(params, t0, k, k, 0, pulse, statics[i][w],
+                                    state_w, acc[i], rec[i], out=out,
+                                    **wins[w])
+        else:
+            sharded_round(params, t0, k, k, 0, pulse, statics[i][w], state_w,
+                          acc[i], rec[i], tiles[w], out=out, **wins[w])
+
+    state = [torch.zeros((3, bx, by), dtype=torch.float32, device=d)
+             for d in devs]
+    acc = [torch.stack(fresh_acc((bx, by), d)) for d in devs]
+    rec = [torch.empty((T, bx, by), dtype=torch.float32, device=d)
+           for d in devs]
+    top = [torch.zeros((3, k, by), dtype=torch.float32, device=d)
+           for d in devs]
+    bot = [torch.zeros_like(g) for g in top]
+    copies = None
+    for t0 in range(0, T, k):
+        new = [torch.empty((3, bx, by), dtype=torch.float32, device=d)
+               for d in devs]
+        for i, d in enumerate(devs):
+            if copies is not None:
+                copies.wait(d)
+            frames = torch.cat([top[i], state[i][:, :2 * k],
+                                state[i][:, bx - 2 * k:], bot[i]], dim=1)
+            launch(i, t0, 0, frames, new[i])
+        top, bot, copies = _exchange_frames(new, k)
+        for i in range(len(devs)):
+            launch(i, t0, 1, state[i], new[i])
+        state = new
+    return [[r] for r in rec], [[a] for a in acc]
+
+
+def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
+                   mesh: Mesh, nx_pad: int, ny_pad: int, halo: int,
+                   band_rows, overlap: bool, reference: bool,
+                   with_moments: bool):
+    mx, my = mesh.shape["x"], mesh.shape["y"]
+    if (nx_pad % mx or ny_pad % my or nx_pad < params.nx
+            or ny_pad < params.ny):
+        raise ValueError(f"padded field ({nx_pad}, {ny_pad}) must cover "
+                         f"({params.nx}, {params.ny}) and divide over the "
+                         f"{mx}x{my} mesh (see pad_to_mesh)")
+    bx, by = nx_pad // mx, ny_pad // my
+    k = int(halo)
+    if not 1 <= k <= min(bx, by):
+        raise ValueError(f"halo {k} exceeds shard block ({bx}, {by}) or is "
+                         f"below 1")
+    if overlap:
+        # the JAX module's preconditions and messages
+        if my != 1:
+            raise ValueError(
+                f"overlap=True needs a 1D ('x', N) mesh (y unsharded; "
+                f"got {mx}x{my}) — the boundary-frame split exchanges "
+                f"contiguous row slabs")
+        if mx > 1 and bx < 3 * k:
+            raise ValueError(
+                f"overlap=True needs shard rows >= 3*halo (frame + "
+                f"doomed fringe + frame), got bx={bx} < {3 * k}")
+        # a single shard exchanges nothing: the plain rounds below are
+        # already free of communication
+        overlap = mx > 1
+    beta_b = _blocks(mesh, "beta", beta, nx_pad, ny_pad)
+    refl_b = _blocks(mesh, "refl", refl, nx_pad, ny_pad)
+    T = params.response_length
+    check_field("sharded", "pulse", pulse, (T,))
+    lix, liy = int(lix), int(liy)
+    if not (0 <= lix < params.nx and 0 <= liy < params.ny):
+        lix = liy = _NOWHERE    # a listener outside the field injects nothing
+    banded = (band_rows is not None
+              or bx * by > fdtd_fused.TILED_MIN_CELLS)
+    if banded and mx == my == 1 and band_rows is None:
+        return _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
+                                   nx_pad, ny_pad, reference, with_moments)
+
+    y_b = [[admittance(r) for r in row] for row in refl_b]
+    pulses = {}
+
+    def pulse_on(dev):
+        if dev not in pulses:
+            pulses[dev] = pulse.to(dev)
+        return pulses[dev]
+
+    rounds = _overlap_rounds if overlap else _plain_rounds
+    rec, acc = rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
+                      k, band_rows, banded, reference)
 
     def grid(c):
         return [[a[c] for a in row] for row in acc]
@@ -522,6 +720,8 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
                                "flux_x": grid(1), "flux_y": grid(2)})
     if not with_moments:
         return res, None
+    # one B2 or B4 launch per shard on its recording, the split's included:
+    # a cell's moments read only its own column of the recording
     if banded:
         moments = (fdtd_tiled.rt60_moments_tiled_reference if reference
                    else fdtd_tiled.rt60_moments_tiled)
@@ -550,8 +750,13 @@ def simulate_sharded_fused(params: GridParams, beta, refl, pulse,
     B6 with ``band_rows`` x ``band_rows`` tiles. Returns the per-shard
     :class:`Sharded` FdtdResult, whose ``assemble(device)`` is the padded
     [T, nx_pad, ny_pad] recording and [nx_pad, ny_pad] onset/flux, equal to
-    the single-device pass on [:nx, :ny]. ``overlap=True`` raises
-    NotImplementedError.
+    the single-device pass on [:nx, :ny].
+
+    ``overlap=True`` takes the overlap split of the rounds
+    (:func:`_overlap_rounds`: frame launch, frame exchange, interior
+    launch), bit-equal to the plain rounds. As in the JAX module it needs
+    a 1D ("x", N) mesh and shard rows bx >= 3 * halo where N > 1, and
+    raises ValueError otherwise; on a 1x1 mesh it takes the plain rounds.
     """
     res, _ = _simulate_impl(params, beta, refl, pulse, listener_ix,
                             listener_iy, mesh, nx_pad, ny_pad, halo,
@@ -564,12 +769,13 @@ def simulate_sharded_reference(params: GridParams, beta, refl, pulse,
                                listener_ix: int, listener_iy: int,
                                mesh: Mesh, nx_pad: int, ny_pad: int,
                                halo: int = 16,
-                               band_rows: int | None = None) -> Sharded:
+                               band_rows: int | None = None,
+                               overlap: bool = False) -> Sharded:
     """:func:`simulate_sharded_fused` with the plain versions of the round
     kernels (B3's on a delegated 1x1 mesh), on any device."""
     res, _ = _simulate_impl(params, beta, refl, pulse, listener_ix,
                             listener_iy, mesh, nx_pad, ny_pad, halo,
-                            band_rows, False, reference=True,
+                            band_rows, overlap, reference=True,
                             with_moments=False)
     return res
 
@@ -594,12 +800,13 @@ def simulate_moments_sharded_reference(params: GridParams, beta, refl,
                                        listener_iy: int, mesh: Mesh,
                                        nx_pad: int, ny_pad: int,
                                        halo: int = 16,
-                                       band_rows: int | None = None):
+                                       band_rows: int | None = None,
+                                       overlap: bool = False):
     """:func:`simulate_moments_sharded` with the plain versions of every
     kernel (B5/B6, B2/B4; B3 on a delegated 1x1 mesh), on any device."""
     return _simulate_impl(params, beta, refl, pulse, listener_ix,
                           listener_iy, mesh, nx_pad, ny_pad, halo,
-                          band_rows, False, reference=True,
+                          band_rows, overlap, reference=True,
                           with_moments=True)
 
 

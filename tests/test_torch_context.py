@@ -181,17 +181,33 @@ def _port_mesh():
 
 @pytest.mark.parametrize("case", ["halo"])
 def test_unported_options_raise(case):
-    """What is not ported yet raises NotImplementedError naming its ROADMAP
-    item: the overlapped halo exchange of the sharded rounds (A14)."""
-    from planeverb_tpu_torch.parallel import simulate_sharded_fused
+    """The overlapped halo exchange of the sharded rounds is ported; what
+    the JAX engine refuses for it raises the JAX engine's ValueError: a 2D
+    mesh, and on a 1D mesh shards of fewer than 3 * halo rows."""
+    import jax
+
+    from planeverb_tpu.parallel import grid_mesh as jax_grid_mesh
+    from planeverb_tpu.parallel import simulate_sharded_pallas
+    from planeverb_tpu_torch.parallel import grid_mesh, simulate_sharded_fused
 
     cfg = tpv.PlaneverbConfig(10.0, 10.0, 275)
     p = tpv.compute_grid_params(cfg)
-    zeros = torch.zeros((30, 30))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_sharded_fused(p, zeros, zeros,
-                               torch.zeros(p.response_length), 5, 5,
-                               _port_mesh(), 30, 30, halo=8, overlap=True)
+    zeros = torch.zeros((32, 32))
+    pulse = torch.zeros(p.response_length)
+    for shape, match in (((2, 2), r"1D \('x', N\) mesh"),
+                         ((4, 1), r"3\*halo")):
+        n = shape[0] * shape[1]
+        with pytest.raises(ValueError, match=match) as port:
+            simulate_sharded_fused(p, zeros, zeros, pulse, 5, 5,
+                                   grid_mesh(["cpu"] * n, shape), 32, 32,
+                                   halo=8, overlap=True)
+        with pytest.raises(ValueError, match=match) as ref:
+            simulate_sharded_pallas(p, zeros.numpy(), zeros.numpy(),
+                                    pulse.numpy(), 5, 5,
+                                    jax_grid_mesh(jax.devices()[:n], shape),
+                                    32, 32, halo=8, interpret=True,
+                                    overlap=True)
+        assert str(port.value) == str(ref.value)
 
 
 CFG10 = (10.0, 10.0, 275)

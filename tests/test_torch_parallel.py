@@ -366,7 +366,8 @@ def test_sharded_errors(room):
     with pytest.raises(ValueError, match="halo 16 exceeds"):
         simulate_sharded_fused(p, b, r, pl, lix, liy, mesh, nxp, nyp,
                                halo=16)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # the overlap split needs a 1D ("x", N) mesh (the JAX module's error)
+    with pytest.raises(ValueError, match=r"1D \('x', N\) mesh"):
         simulate_sharded_fused(p, b, r, pl, lix, liy, mesh, nxp, nyp,
                                halo=8, overlap=True)
     with pytest.raises(ValueError, match="cover"):
