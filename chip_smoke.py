@@ -7,21 +7,29 @@ Builds the CUDA kernels from ``planeverb_tpu_torch/csrc`` and runs, one
 line per phase:
 
   1. device: the card's name and power limit, torch, CUDA and nvcc versions;
-  2. build: nvcc build of the kernels (seconds, ptxas register counts);
+  2. build: nvcc build of the kernels (seconds, ptxas registers and
+     spills, the clusters of B1's cluster mode the card holds at once);
   3. B1 ``fdtd_sim`` against its plain PyTorch version on the card, at the
      headline workload (HugeRoom, 25 m at 750 Hz: 192 x 192 cells x 1187
-     steps), with CUDA-event medians of both;
+     steps), in its cluster mode (one launch a pass) and its per-step mode
+     (``fdtd_sim_per_step``), timed in turns, also with the listener on a
+     seam between two blocks' strips, and on grids whose strips start
+     mid-row (SmallRoom at 275 Hz, a thin open field) in float32 and bf16,
+     with listeners at and around a block's first cell;
   4. B2 ``rt60_moments`` against its plain version on that recording;
   5. the engine's main path: ``Context(device="cuda")`` at the headline
      size, three emitters, five ``step()`` calls, with the kernels' launch
-     counts and the step times;
+     counts, the card's launches in one more step and the step times;
   6. the same engine step on the CPU (the plain versions), its published
      grids held to the card's at the golden-scene tolerances;
-  7. B3 ``fdtd_sim_tiled`` (the large world's simulation: k steps per
-     launch over tiles) against its plain version and against B1 (kernel
-     against kernel) at 459^2 (60 m at 750 Hz, HugeRoom, listener at the
-     center) and 964^2 (126 m), with CUDA-event medians (the plain version
-     timed at 459^2 only);
+  7. B3 ``fdtd_sim_tiled`` (the large world's simulation: k steps a round
+     over tiles, the whole pass in one cooperative launch) against its
+     plain version, itself with the accumulators in global memory (its
+     mode above ~1100^2 cells) and B1 (kernel against kernel) at 459^2
+     (60 m at 750 Hz, HugeRoom, listener at the center) and 964^2 (126 m),
+     timed in turns against B1's per-step mode (its ratio), the plain
+     version timed at 459^2 only; then rigid outer walls on an open 60 m
+     field against its plain version and B1;
   8. B4 ``rt60_moments_tiled`` against its plain version and against B2 on
      B3's recordings at 459^2 and 964^2, with times and GB/s;
   9. the large-world engine: ``Context`` at 126 m with ``publish="cells"``,
@@ -76,13 +84,18 @@ line per phase:
      single-device Context's) and the 126 m world with cells publish (rows
      equal phase 9's), launch counts set to 0 before each part.
 
+Every main path's step is followed by one more with the card's launches of
+each kernel counted (``kernels.device_launches``, zeroed just before it).
 Then a JSON line with each kernel's (and mode's) launches on its main
-path, error, times and bound, and as the last line
+path (B1's per-step mode: over phase 3's timed headline run, whose times
+it reports), its launches on the card in one step of that path, error,
+times and bound, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. It needs a CUDA card and the repository
 beside it; it imports neither jax nor planeverb_tpu.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -246,6 +259,18 @@ def _cuda_ms(fn, reps):
     return statistics.median(_once(fn)[0] for _ in range(reps))
 
 
+def _stages(analyzer, q, res, mom, efree, lx, lz, directions, reps=5):
+    """Medians of (CUDA-event ms, host wall ms) of parameter assembly (and
+    DOA when ``directions``) on one pass's moments: the step's stage after
+    the kernels."""
+    def assemble():
+        analyzer.analyze_moments(q, mom, res.onset, res.flux_x, res.flux_y,
+                                 efree, lx, lz, compute_directions=directions)
+    assemble()
+    ev, wall = zip(*(_once(assemble) for _ in range(reps)))
+    return statistics.median(ev), statistics.median(wall)
+
+
 def _bound(moved_bytes, ops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over the float32 rate."""
@@ -306,6 +331,60 @@ ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
               "source_directivity", "delay_samples")
 
 
+# kernel names and template arguments as they appear in ptxas's mangled
+# entry names
+_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel", "rt60_moments_kernel",
+            "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel")
+_TEMPLATE_ARGS = (("I13__nv_bfloat16E", "<bf16>"), ("IfE", "<float>"),
+                  ("ILi4ELb1EE", "<4, true>"), ("ILi4ELb0EE", "<4, false>"),
+                  ("ILb1EE", "<true>"), ("ILb0EE", "<false>"))
+
+
+def _ptxas_summary(log):
+    """'kernel<args>: N registers, S bytes spilled' per entry of ptxas's
+    -v log."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            base = next((k for k in _KERNELS if k in mangled), mangled)
+            tail = mangled.split(base, 1)[-1]
+            name = base + next((a for m, a in _TEMPLATE_ARGS
+                                if tail.startswith(m)), "")
+        elif "spill stores" in ln and name:
+            spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
+            out.append([name, spill])
+        elif "Used" in ln and "registers" in ln and name and out:
+            regs = ln.split("Used", 1)[1].split("registers")[0].strip()
+            out[-1] = f"{out[-1][0]}: {regs} registers, {out[-1][1]} bytes " \
+                      f"spilled"
+            name = None
+    return [o for o in out if isinstance(o, str)]
+
+
+def _device_pass(kernels, fn):
+    """The card's launches of each kernel (``kernels.device_launches``, as
+    the C launchers count them) in one call of fn, the counts zeroed just
+    before it; the kernels launched at least once."""
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.device_launches(reset=True)
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in kernels.device_launches(reset=True).items()
+            if v}
+
+
+def _strip_start_cells(nx, ny, rank):
+    """Listener cells around the start of B1 cluster block ``rank``'s strip
+    (its first cell c0 = rank * ceil(nx * ny / 16), row-major): the cell
+    before it (the previous block's last), c0 itself, and the cell a row
+    above c0."""
+    c0 = rank * -(-nx * ny // 16)
+    return [divmod(c, ny) for c in (c0 - 1, c0, c0 - ny) if c >= 0]
+
+
 def _large_inputs(pv, voxelize, gaussian_pulse, size, dev):
     import torch
 
@@ -336,7 +415,8 @@ def main() -> int:
     import planeverb_tpu_torch as pv
     from planeverb_tpu_torch import kernels
     from planeverb_tpu_torch.config import gaussian_pulse
-    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled, voxelize
+    from planeverb_tpu_torch.ops import (analyzer, fdtd_fused, fdtd_tiled,
+                                         voxelize)
 
     # -- 1. device
     smi = subprocess.run(
@@ -353,12 +433,9 @@ def main() -> int:
     # -- 2. build
     t0 = time.perf_counter()
     lib_path, log = kernels.build(force=True)
-    kernels.library()
+    lib = kernels.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: {build_s:.2f} s -> "
-          f"{os.path.relpath(lib_path, root)}; ptxas: {' | '.join(regs)}")
+    regs = _ptxas_summary(log)
 
     # -- headline inputs, made on the card
     dev = torch.device("cuda")
@@ -372,23 +449,127 @@ def main() -> int:
     lix, liy = p.world_to_cell(*HEADLINE["listener"])
     shape = f"{p.nx}x{p.ny}x{p.response_length}"
     label = f"CUDA-event medians on {card}"
+    clusters = {k: lib.pv_fdtd_cluster_occupancy(p.nx, p.ny, int(bf16))
+                for k, bf16 in (("float32", False), ("bf16", True))}
+    _require(min(clusters.values()) >= 1,
+             f"B1's cluster mode cannot be scheduled: {clusters}")
+    print(f"phase 2 build: {build_s:.2f} s -> "
+          f"{os.path.relpath(lib_path, root)}; B1 cluster mode at {p.nx}x"
+          f"{p.ny}: {clusters} clusters of 16 blocks active at once "
+          f"(cudaOccupancyMaxActiveClusters); ptxas: {' | '.join(regs)}")
 
-    # -- 3. B1 vs its plain version
+    # -- 3. B1 vs its plain version: the cluster mode (one launch a pass,
+    # the headline's mode) and the per-step mode, in turns in one run, both
+    # bit-equal to the plain version; then a listener on a strip seam
+    _require(fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, 1) == "cluster",
+             "the headline must take B1's cluster mode")
     kres, kacc = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy)
+    sres, sacc = fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy)
     rres, racc = fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse,
                                                lix, liy)
     torch.cuda.synchronize()
-    b1, b1_bits = _compare(kres, kacc, rres, racc, "B1 vs plain")
+    b1, b1_bits = _compare(kres, kacc, rres, racc, "B1 cluster vs plain")
+    b1s, b1s_bits = _compare(sres, sacc, rres, racc, "B1 per-step vs plain")
+    _require(b1_bits and b1s_bits, "B1 not bit-equal to its plain version")
     _require(torch.isfinite(kres.pressure).all(), "B1 recording not finite")
-    b1_ms, b1_plain_ms = _time_pair(
+    del sres, sacc
+    # a strip seam: block rank r of the cluster owns the cells from
+    # r * ceil(nx * ny / 16); the listener on the first row of rank 1 and on
+    # the last row of rank 0
+    strip_rows = -(-p.nx * p.ny // 16) // p.ny
+    seam = {}
+    for cx in (strip_rows, strip_rows - 1):
+        c = fdtd_fused.fdtd_sim(p, beta, refl, pulse, cx, liy)
+        s_ = fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, cx, liy)
+        r_ = fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse, cx, liy)
+        torch.cuda.synchronize()
+        _, bits_c = _compare(c[0], c[1], r_[0], r_[1],
+                             f"B1 cluster, listener ({cx}, {liy})")
+        _, bits_s = _compare(s_[0], s_[1], r_[0], r_[1],
+                             f"B1 per-step, listener ({cx}, {liy})")
+        _require(bits_c and bits_s, f"seam listener ({cx}, {liy})")
+        seam[(cx, liy)] = bits_c and bits_s
+        del c, s_, r_
+    # blocks whose strips start mid-row (ceil(nx * ny / 16) % ny != 0, as on
+    # most room sizes): SmallRoom 10 m at 275 Hz and a thin open 60 x 6 m
+    # field at 750 Hz (no walls: the pulse reaches every strip), float32 and
+    # bf16, listeners at block rank 8's first cell, the cell before it and
+    # the cell above it; the batched cluster pass (a cluster a listener),
+    # per-step passes and the plain version all bit-equal
+    midrow = {}
+    for mname, mcfg in (("SmallRoom", pv.PlaneverbConfig(10.0, 10.0, 275)),
+                        ("open", pv.PlaneverbConfig(60.0, 6.0, 750))):
+        mq = pv.compute_grid_params(mcfg)
+        if mname == "open":
+            mb = torch.ones((mq.nx, mq.ny), dtype=torch.float32, device=dev)
+            mr = torch.zeros_like(mb)
+        else:
+            mb, mr = voxelize.voxelize(mq, torch.from_numpy(
+                voxelize.boxes_to_array(pv.demo_scene(mname).boxes)).to(dev))
+        mpulse = torch.from_numpy(gaussian_pulse(mq)).to(dev)
+        mcells = _strip_start_cells(mq.nx, mq.ny, 8)
+        _require(-(-mq.nx * mq.ny // 16) % mq.ny != 0
+                 and mcells[1][1] != 0, f"{mname}: strips start at a row")
+        for dt in (torch.float32, torch.bfloat16):
+            _require(fdtd_fused.b1_mode(mq.nx, mq.ny, dt, len(mcells))
+                     == "cluster", f"{mname} must take the cluster mode")
+            c = fdtd_fused.fdtd_sim_batch(mq, mb, mr, mpulse, mcells,
+                                          state_dtype=dt)
+            r_ = fdtd_fused.fdtd_sim_batch_reference(mq, mb, mr, mpulse,
+                                                     mcells, state_dtype=dt)
+            torch.cuda.synchronize()
+            what = f"B1 cluster {mname} {mq.nx}x{mq.ny} {dt}"
+            _, bits = _compare(c[0], c[1], r_[0], r_[1], what)
+            _require(bits, f"{what} listeners {mcells}: not bit-equal")
+            _require(torch.isfinite(c[0].pressure.float()).all()
+                     and (c[0].pressure != 0).any(dim=(1, 2, 3)).all(),
+                     f"{what}: recording not finite or silent")
+            for i, (cx, cy) in enumerate(mcells):
+                s_ = fdtd_fused.fdtd_sim_per_step(mq, mb, mr, mpulse, cx, cy,
+                                                  state_dtype=dt)
+                torch.cuda.synchronize()
+                _require(all(torch.equal(a, g[i]) for a, g in zip(
+                    (*s_[0], *s_[1]), (*r_[0], *r_[1]))),
+                    f"B1 per-step {mname} {dt} listener ({cx}, {cy})")
+            midrow[f"{mname} {mq.nx}x{mq.ny} {str(dt)[6:]}"] = mcells
+            del c, r_, s_
+    # device launches of one pass in each mode, then the two modes timed
+    # in turns: the per-step entry's launches count this run's calls
+    cluster_pass = _device_pass(kernels, lambda: fdtd_fused.fdtd_sim(
+        p, beta, refl, pulse, lix, liy))
+    step_pass = _device_pass(kernels, lambda: fdtd_fused.fdtd_sim_per_step(
+        p, beta, refl, pulse, lix, liy))
+    _require(cluster_pass == {"fdtd_cluster_kernel": 1},
+             f"cluster B1 pass device launches {cluster_pass}")
+    _require(step_pass == {"fdtd_step_kernel": p.response_length},
+             f"per-step B1 pass device launches {step_pass}")
+    fdtd_fused.fdtd_sim_per_step.launches = 0
+    b1_ms, b1_step_ms = _time_pair(
         lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy),
-        lambda: fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse, lix,
-                                              liy), reps=4)
-    print(f"phase 3 B1 fdtd_sim {shape}: max rel diff "
+        lambda: fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy),
+        reps=6)
+    b1_step_launches = fdtd_fused.fdtd_sim_per_step.launches
+    b1_enq, b1_step_enq = _enqueue_pair(
+        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy),
+        lambda: fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy),
+        reps=6)
+    b1_plain_ms = _once(lambda: fdtd_fused.fdtd_sim_reference(
+        p, beta, refl, pulse, lix, liy))[0]
+    print(f"phase 3 B1 fdtd_sim {shape}: cluster mode (device launches a "
+          f"pass {cluster_pass}) and per-step mode ({step_pass}) vs plain "
+          f"max rel "
           + ", ".join(f"{k} {v[0]:.3g}" for k, v in b1.items())
-          + f" (bound {REL_TOL:g}); onset equal True; bit-equal "
-          f"{b1_bits}; kernel "
-          f"{b1_ms:.3f} ms vs plain {b1_plain_ms:.3f} ms ({label})")
+          + f" / " + ", ".join(f"{k} {v[0]:.3g}" for k, v in b1s.items())
+          + f" (bound {REL_TOL:g}); onset equal; bit-equal {b1_bits} / "
+          f"{b1s_bits}; listener on the strip seam (strips of {strip_rows} "
+          f"rows) {seam} bit-equal in both modes; strips starting "
+          f"mid-row, listeners at and around block 8's first cell, bit-equal "
+          f"batched cluster / per-step / plain: {midrow}; cluster "
+          f"{b1_ms:.3f} ms vs "
+          f"per-step {b1_step_ms:.3f} ms (ratio {b1_ms / b1_step_ms:.3f}, "
+          f"medians of 6 in turns), host enqueue {b1_enq:.3f} vs "
+          f"{b1_step_enq:.3f} ms; plain {b1_plain_ms:.3f} ms ({label})",
+          flush=True)
 
     # -- 4. B2 vs its plain version, on the kernel's recording
     s0, s1 = fdtd_fused.rt60_moments(p, kres.pressure, kres.onset)
@@ -424,6 +605,10 @@ def main() -> int:
     _require(fdtd_tiled.fdtd_sim_tiled.launches == 0
              and fdtd_tiled.rt60_moments_tiled.launches == 0,
              "the headline must stay on B1 + B2")
+    # the card's launches in one more step of the main path
+    hl_step = _device_pass(kernels, ctx.step)
+    _require(hl_step == {"fdtd_cluster_kernel": 1, "rt60_moments_kernel": 1},
+             f"headline step device launches {hl_step}")
     outs = [ctx.get_output(e) for e in eids]
     _require(all(o.valid for o in outs), outs)
     grids = {k: v for k, v in ctx._published.items()
@@ -439,9 +624,22 @@ def main() -> int:
     _require(ir.shape == (p.response_length,) and np.abs(ir).max() > 0,
              "impulse response near the listener is silent")
     tput = p.nx * p.ny * p.response_length / (statistics.median(ev_ms) / 1e3)
+    # the step's stages: B1 and its enqueue (phase 3), B2 (phase 4), and
+    # the assembly + DOA on this pass's moments
+    sres, smom = fdtd_fused.simulate_moments_fused(p, beta, refl, pulse,
+                                                   lix, liy)
+    asm_ms, asm_wall = _stages(analyzer, p, sres, smom, ctx.efree,
+                               float(np.float32(lx)), float(np.float32(lz)),
+                               directions=not ctx._lazy_doa)
+    del sres, smom
+    print(f"phase 5 step stages {shape}: B1 {b1_ms:.3f} ms (host enqueue "
+          f"{b1_enq:.3f} ms), B2 {b2_ms:.3f} ms, assembly + DOA "
+          f"{asm_ms:.3f} ms (host {asm_wall:.3f} ms), step "
+          f"{statistics.median(ev_ms):.3f} ms ({label})", flush=True)
     print(f"phase 5 main path Context(device='cuda') {shape}: EFree "
           f"{ctx.efree:.6g}; launches {launches} (calibration + {STEPS} "
-          f"steps); step median {statistics.median(ev_ms):.3f} ms "
+          f"steps); device launches of a step {hl_step}; step median "
+          f"{statistics.median(ev_ms):.3f} ms "
           f"(CUDA events), {statistics.median(wall_ms):.3f} ms (wall) on "
           f"{card}; {tput / 1e9:.3f} G cell-updates/s; emitters "
           + "; ".join(f"occ {o.occlusion:.4f} rt60 {o.rt60:.3f}"
@@ -473,14 +671,20 @@ def main() -> int:
     del ctx, cpu, kres, rres, kacc, racc
     torch.cuda.empty_cache()
 
-    # -- 7. B3 vs its plain version (459^2) and vs B1 (459^2, 964^2)
+    # -- 7. B3 vs its plain version and vs B1 (459^2, 964^2), timed against
+    # B1's per-step mode (the mode B1 takes at these sizes); B3 with its
+    # accumulators forced to global memory (the kernel's mode above ~1100^2)
+    # against the main path's; then rigid outer walls
     t_phase = time.perf_counter()
     b3 = {}
     recs = {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for size in (LARGE, XL):
         q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
                                               size, dev)
         qshape = f"{q.nx}x{q.ny}x{q.response_length}"
+        _require(fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1) == "step",
+                 f"B1 at {qshape} must take its per-step mode")
         k3res, k3acc = fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy)
         k1res, k1acc = fdtd_fused.fdtd_sim(q, qb, qr, qp, qx, qy)
         torch.cuda.synchronize()
@@ -495,38 +699,81 @@ def main() -> int:
         torch.cuda.synchronize()
         row["vs_plain"], row["plain_bits"] = _compare(
             k3res, k3acc, r3res, r3acc, f"B3 vs plain {qshape}")
+        _require(b1_bits3 and row["plain_bits"],
+                 f"B3 not bit-equal at {qshape}")
         del r3res, r3acc
         if size == LARGE:
-            row["ms"], row["plain_ms"] = _time_pair(
-                lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy),
+            row["plain_ms"] = _once(
                 lambda: fdtd_tiled.fdtd_sim_tiled_reference(
-                    q, qb, qr, qp, qx, qy), reps=2)
-        else:
-            row["ms"] = _cuda_ms(
-                lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy), 3)
-        row["b1_ms"] = _cuda_ms(
-            lambda: fdtd_fused.fdtd_sim(q, qb, qr, qp, qx, qy), 3)
+                    q, qb, qr, qp, qx, qy))[0]
+        # the accumulators in global memory must give the same bits
+        tile = fdtd_tiled.pick_tile(q.nx, q.ny, fdtd_tiled.HALO, n_sm)
+
+        def b3_global():
+            return fdtd_tiled.fdtd_sim_tiled_probe(
+                q, qb, qr, qp, qx, qy, tile, fdtd_tiled.HALO,
+                global_acc=True)
+        gres, gacc = b3_global()
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b) for a, b in zip(
+            (*gres, *gacc), (*k3res, *k3acc))),
+            f"B3 with global accumulators differs at {qshape}")
+        del gres, gacc
+        row["device_pass"] = _device_pass(
+            kernels, lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy))
+        _require(row["device_pass"] == {"fdtd_tiled_kernel": 1},
+                 f"B3 pass device launches {row['device_pass']}")
+        row["ms"], row["b1_ms"] = _time_pair(
+            lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy),
+            lambda: fdtd_fused.fdtd_sim_per_step(q, qb, qr, qp, qx, qy),
+            reps=3)
+        row["global_ms"] = _cuda_ms(b3_global, 3)
         torch.cuda.synchronize()
         _require(torch.isfinite(k3res.pressure).all(),
                  f"B3 recording not finite at {qshape}")
-        rounds = -(-q.response_length // fdtd_tiled.HALO)
-        tile = fdtd_tiled.pick_tile(
-            q.nx, q.ny, fdtd_tiled.HALO,
-            torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"phase 7 B3 fdtd_sim_tiled {qshape} (tile {tile}, halo "
-              f"{fdtd_tiled.HALO}: {rounds} launches a pass): vs B1 max rel "
+              f"{fdtd_tiled.HALO}: the whole pass in one cooperative launch, "
+              f"device launches {row['device_pass']}; with the accumulators "
+              f"in global memory bit-equal, {row['global_ms']:.3f} ms): vs "
+              f"B1 max rel "
               + ", ".join(f"{k} {v[0]:.3g}" for k, v in vs_b1.items())
               + f", bit-equal {b1_bits3}; vs plain max rel "
               + ", ".join(f"{k} {v[0]:.3g}" for k, v in row["vs_plain"].items())
               + f", bit-equal {row['plain_bits']}"
               + f" (bound {REL_TOL:g}, onset equal); B3 {row['ms']:.3f} ms, "
-              f"B1 {row['b1_ms']:.3f} ms"
+              f"B1 per-step {row['b1_ms']:.3f} ms, ratio "
+              f"{row['ms'] / row['b1_ms']:.3f} (medians of 3 in turns)"
               + (f", plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
                  else "")
-              + f" ({label}); wrapper calls so far "
-              f"{fdtd_tiled.fdtd_sim_tiled.launches}", flush=True)
+              + f" ({label})", flush=True)
         b3[qshape] = row
         recs[qshape] = (q, k3res)
+    # rigid outer walls (grid_boundary_type REFLECTING: the kernel's fold
+    # without the edge ABC) on an open 60 m field, where the pulse reaches
+    # the edges: B3 bit-equal to its plain version and to per-step B1
+    rq = pv.compute_grid_params(pv.PlaneverbConfig(
+        LARGE, LARGE, 750, grid_boundary_type=pv.BoundaryType.REFLECTING))
+    rb = torch.ones((rq.nx, rq.ny), dtype=torch.float32, device=dev)
+    rr = torch.zeros_like(rb)
+    rp = torch.from_numpy(gaussian_pulse(rq)).to(dev)
+    rx, ry = rq.world_to_cell(LARGE / 2, LARGE / 2)
+    rshape = f"{rq.nx}x{rq.ny}x{rq.response_length}"
+    k3 = fdtd_tiled.fdtd_sim_tiled(rq, rb, rr, rp, rx, ry)
+    _, rigid_plain = _compare(*k3, *fdtd_tiled.fdtd_sim_tiled_reference(
+        rq, rb, rr, rp, rx, ry), f"B3 rigid vs plain {rshape}")
+    _, rigid_b1 = _compare(*k3, *fdtd_fused.fdtd_sim(rq, rb, rr, rp, rx, ry),
+                           f"B3 rigid vs B1 {rshape}")
+    _require(rigid_plain and rigid_b1, f"B3 rigid walls not bit-equal")
+    absorbing = fdtd_tiled.fdtd_sim_tiled(
+        dataclasses.replace(rq, boundary_type=pv.BoundaryType.ABSORBING),
+        rb, rr, rp, rx, ry)[0]
+    rigid_differs = not torch.equal(absorbing.pressure, k3[0].pressure)
+    _require(rigid_differs, "rigid walls change nothing: the pulse never "
+             "reached the edges")
+    del k3, absorbing
+    print(f"phase 7 B3 rigid outer walls, open field {rshape}: bit-equal to "
+          f"its plain version and to B1 (per-step) {rigid_plain and rigid_b1}"
+          f"; differs from the absorbing edges {rigid_differs}", flush=True)
     print(f"phase 7 seconds: {time.perf_counter() - t_phase:.1f}")
 
     # -- 8. B4 vs its plain version and vs B2, on B3's recordings
@@ -594,6 +841,10 @@ def main() -> int:
                              "fdtd_sim_tiled": XL_STEPS,
                              "rt60_moments_tiled": XL_STEPS}, xl_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    xl_step = _device_pass(kernels, xctx.step)
+    _require(xl_step == {"fdtd_tiled_kernel": 1,
+                         "rt60_moments_tiled_kernel": 1},
+             f"126 m step device launches {xl_step}")
     xp = xctx.params
     xouts = [xctx.get_output(e) for e in xeids]
     _require(all(o.valid for o in xouts), xouts)
@@ -606,6 +857,13 @@ def main() -> int:
         *xp.world_to_cell(xl_lx, xl_lz), xctx.efree,
         float(np.float32(xl_lx)), float(np.float32(xl_lz)))
     grid_rows = _pack(xout).cpu().numpy()
+    xmom = fdtd_tiled.simulate_moments_tiled(xp, xctx._beta, xctx._refl,
+                                             xctx._pulse, *xp.world_to_cell(
+                                                 xl_lx, xl_lz))[1]
+    xasm_ms, xasm_wall = _stages(
+        analyzer, xp, xres, xmom, xctx.efree, float(np.float32(xl_lx)),
+        float(np.float32(xl_lz)), directions=not xctx._lazy_doa)
+    del xmom
     for (cx, cy), row in cells.items():
         np.testing.assert_array_equal(row, grid_rows[cx, cy],
                                       err_msg=f"cell ({cx}, {cy})")
@@ -623,12 +881,16 @@ def main() -> int:
                                                    / 1e3)
     print(f"phase 9 large world Context({XL:g} m, publish='cells', "
           f"device='cuda') {xshape}: EFree {xctx.efree:.6g}; launches "
-          f"{xl_launches} (calibration + {XL_STEPS} steps); step median "
+          f"{xl_launches} (calibration + {XL_STEPS} steps); device launches "
+          f"of a step {xl_step}; step median "
           f"{statistics.median(xev):.3f} ms (CUDA events), "
           f"{statistics.median(xwall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in xev)
           + f" ms on {card}; {xtput / 1e9:.3f} G cell-updates/s; peak "
-          f"device memory {peak_gb:.2f} GB; emitter rows equal the grids "
+          f"device memory {peak_gb:.2f} GB; stages: B3 "
+          f"{b3[xshape]['ms']:.3f} ms, B4 {b4[xshape]['ms']:.3f} ms, "
+          f"assembly{'' if xctx._lazy_doa else ' + DOA'} {xasm_ms:.3f} ms "
+          f"(host {xasm_wall:.3f} ms); emitter rows equal the grids "
           f"publish; emitters "
           + "; ".join(f"occ {o.occlusion:.4f} rt60 {o.rt60:.3f}"
                       for o in xouts), flush=True)
@@ -648,9 +910,10 @@ def main() -> int:
             reps=CROSSOVER_REPS)
         routed = ("B3 + B4" if q.nx * q.ny > fdtd_fused.TILED_MIN_CELLS
                   else "B1 + B2")
+        mode = fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1)
         print(f"phase 10 crossover {qshape} ({q.nx * q.ny} cells, routed "
               f"to {routed} by TILED_MIN_CELLS = "
-              f"{fdtd_fused.TILED_MIN_CELLS}): B1 + B2 "
+              f"{fdtd_fused.TILED_MIN_CELLS}): B1 ({mode} mode) + B2 "
               f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms, ratio "
               f"{tiled_ms / fused_ms:.3f} ({label}, medians of "
               f"{CROSSOVER_REPS} in turns)", flush=True)
@@ -848,6 +1111,10 @@ def main() -> int:
                             "sharded_round": 4 * rounds * STEPS,
                             "banded_round": 0, "fdtd_sim_tiled": 0,
                             "rt60_moments_tiled": 0}, m_launches)
+    m_step = _device_pass(kernels, mctx.step)
+    _require(m_step == {"round_kernel<false>": 4 * rounds,
+                        "rt60_moments_kernel": 4},
+             f"2x2 mesh step device launches {m_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
     one.set_listener_position(lx, 0.0, lz)
     for x, z in EMITTERS:
@@ -863,7 +1130,8 @@ def main() -> int:
     del one
     print(f"phase 13 main path Context(mesh=2x2 of cuda:0, halo "
           f"{mctx._halo}) {shape}: launches {m_launches} (calibration + "
-          f"{STEPS} steps); step median {statistics.median(mev):.3f} ms "
+          f"{STEPS} steps; device launches of a step {m_step}); step median "
+          f"{statistics.median(mev):.3f} ms "
           f"(CUDA events), {statistics.median(mwall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in mev)
           + f" ms; single-device step {one_ev:.3f} ms; published grids and "
@@ -894,6 +1162,10 @@ def main() -> int:
                              "rt60_moments_tiled": 4 * XL_STEPS},
              xm_launches)
     xm_peak = torch.cuda.max_memory_allocated() / 1e9
+    xm_step = _device_pass(kernels, xm.step)
+    _require(xm_step == {"round_kernel<true>": 4 * xrounds,
+                         "rt60_moments_tiled_kernel": 4},
+             f"126 m 2x2 mesh step device launches {xm_step}")
     xm_cells = xm._published["cells"]
     _require(xm_cells.keys() == xl_rows.keys(), sorted(xm_cells))
     for cell, row in xm_cells.items():
@@ -902,7 +1174,8 @@ def main() -> int:
     _require(all(xm.get_output(e).valid for e in xmeids), "126 m outputs")
     print(f"phase 13 large world Context({XL:g} m, publish='cells', mesh="
           f"2x2 of cuda:0, halo {xm._halo}) {xshape}: launches "
-          f"{xm_launches} (calibration + {XL_STEPS} steps); step median "
+          f"{xm_launches} (calibration + {XL_STEPS} steps; device launches "
+          f"of a step {xm_step}); step median "
           f"{statistics.median(xmev):.3f} ms (CUDA events), "
           f"{statistics.median(xmwall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in xmev)
@@ -924,6 +1197,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     vcells = [p.world_to_cell(x, z) for x, z in VIEWS]
     nv = len(vcells)
+    _require(fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, nv) == "cluster"
+             and fdtd_fused.b1_mode(p.nx, p.ny, torch.bfloat16, nv)
+             == "cluster", "batched and bf16 B1 must take the cluster mode")
     _require(vcells[0] == (lix, liy), "view 0 is the headline's listener")
     fdtd_fused.reset_launch_counts()
     kres, kacc = fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells)
@@ -949,6 +1225,10 @@ def main() -> int:
     _require(b1b_bits and b2b_bits,
              "batched B1/B2 not bit-equal to their plain versions")
     del rres, racc, rs0, rs1
+    batch_pass = _device_pass(kernels, lambda: fdtd_fused.fdtd_sim_batch(
+        p, beta, refl, pulse, vcells))
+    _require(batch_pass == {"fdtd_cluster_kernel": 1},
+             f"batched B1 pass device launches {batch_pass}")
     # against four single-listener B1 + B2 passes, kernel against kernel
     for i, (cx, cy) in enumerate(vcells):
         sres, sacc = fdtd_fused.fdtd_sim(p, beta, refl, pulse, cx, cy)
@@ -977,8 +1257,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 14 batched B1 fdtd_sim_batch + B2 rt60_moments_batch, "
           f"{nv} listeners {vcells} at {shape}: one pass = 1 wrapper call, "
-          f"{p.response_length} kernel launches (not {nv} x "
-          f"{p.response_length}), and 1 B2 launch ({c14}); vs plain max rel "
+          f"device launches {batch_pass}, and 1 B2 launch ({c14}); vs plain "
+          f"max rel "
           + ", ".join(f"{k} {v[0]:.3g}" for k, v in {**b1b, **b2b}.items())
           + f", bit-equal B1 {b1b_bits}, B2 {b2b_bits}; every view bit-equal "
           f"to its single B1 + B2 pass; B1 batch {b1b_ms:.3f} / "
@@ -1001,6 +1281,9 @@ def main() -> int:
                             "rt60_moments": 0, "rt60_moments_batch": STEPS,
                             "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0},
              v_launches)
+    v_step = _device_pass(kernels, vctx.step)
+    _require(v_step == {"fdtd_cluster_kernel": 1, "rt60_moments_kernel": 1},
+             f"four-view step device launches {v_step}")
     vg = vctx._published
     _require(vg["occlusion"].shape == (nv, p.grid_x, p.grid_y),
              "multi-listener grids shape")
@@ -1040,7 +1323,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 15 main path Context(device='cuda') with {nv} listeners "
           f"{shape}, grids publish: launches {v_launches} (calibration + "
-          f"{STEPS} steps); step median {statistics.median(vev):.3f} ms (CUDA "
+          f"{STEPS} steps; device launches of a step {v_step}); step "
+          f"median {statistics.median(vev):.3f} ms (CUDA "
           f"events), {statistics.median(vwall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in vev)
           + f" ms; single-listener steps "
@@ -1217,6 +1501,9 @@ def main() -> int:
                             "rt60_moments": STEPS, "rt60_moments_batch": 0,
                             "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0},
              h_launches)
+    h_step = _device_pass(kernels, hctx.step)
+    _require(h_step == {"fdtd_cluster_kernel": 1, "rt60_moments_kernel": 1},
+             f"bf16 step device launches {h_step}")
     _require(hctx._published["pressure"].dtype == bf, "bf16 recording")
     _require(all(hctx.get_output(e).valid for e in heids), "bf16 outputs")
     hir = hctx.get_impulse_response(lx + 2 * p.dx, lz)
@@ -1250,7 +1537,8 @@ def main() -> int:
           f"every cell, max/p99/median {stats(cell_errs, True)}, delay "
           f"equal on {delay_equal:.4f} of the cells", flush=True)
     print(f"phase 16 main path Context(precision='bf16') {shape}: launches "
-          f"{h_launches} ({STEPS} steps after the float32 calibration); step "
+          f"{h_launches} ({STEPS} steps after the float32 calibration; "
+          f"device launches of a step {h_step}); step "
           f"median {statistics.median(hev):.3f} ms (CUDA events), "
           f"{statistics.median(hwall):.3f} ms (wall) ({label})", flush=True)
     print(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
@@ -1412,6 +1700,10 @@ def main() -> int:
                             "sharded_round": 4 * rounds * 2 * STEPS,
                             "banded_round": 0, "rt60_moments": 4 * STEPS,
                             "rt60_moments_tiled": 0}, s_launches)
+    s_step = _device_pass(kernels, sctx.step)
+    _require(s_step == {"round_kernel<false>": 4 * rounds * 2,
+                        "rt60_moments_kernel": 4},
+             f"4x1 split step device launches {s_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
     one.set_listener_position(lx, 0.0, lz)
     one.step()
@@ -1441,7 +1733,7 @@ def main() -> int:
     print(f"phase 17 main path Context(mesh=4x1 of cuda:0, halo "
           f"{SHARD_HALO}: the split) {shape}: launches {s_launches} "
           f"(calibration + {STEPS} steps: 2 round launches a shard and "
-          f"round); step median {statistics.median(sev):.3f} ms (CUDA "
+          f"round; device launches of a step {s_step}); step median {statistics.median(sev):.3f} ms (CUDA "
           f"events), {statistics.median(swall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in sev)
           + f" ms; grids and impulse response equal the single-device "
@@ -1464,6 +1756,10 @@ def main() -> int:
         "banded_round": 4 * xrounds * 2 * XL_SPLIT_STEPS,
         "rt60_moments": 0, "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
         xs_launches)
+    xs_step = _device_pass(kernels, xs.step)
+    _require(xs_step == {"round_kernel<true>": 4 * xrounds * 2,
+                         "rt60_moments_tiled_kernel": 4},
+             f"126 m 4x1 split step device launches {xs_step}")
     xs_cells = xs._published["cells"]
     _require(xs_cells.keys() == xl_rows.keys(), sorted(xs_cells))
     for cell, row in xs_cells.items():
@@ -1474,7 +1770,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 17 main path Context({XL:g} m, publish='cells', mesh=4x1 "
           f"of cuda:0: the B6 split) {xshape}: launches {xs_launches} "
-          f"(calibration + {XL_SPLIT_STEPS} steps); steps "
+          f"(calibration + {XL_SPLIT_STEPS} steps; device launches of a step "
+          f"{xs_step}); steps "
           + ", ".join(f"{v:.3f}" for v in xsev) + " ms (CUDA events), "
           + ", ".join(f"{v:.3f}" for v in xswall)
           + f" ms (wall); emitter rows equal phase 9's ({label})",
@@ -1486,61 +1783,72 @@ def main() -> int:
     b3_large = next(r for r in b3.values() if "plain_ms" in r)
     large = pv.compute_grid_params(pv.PlaneverbConfig(LARGE, LARGE, 750))
 
-    def row(name, source, replaces, launches, err, ms, plain_ms, bound):
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound,
+            per_pass):
         return {"name": name, "route": "cuda",
                 "source": f"planeverb_tpu_torch/csrc/{source}",
                 "replaces": f"planeverb_tpu/{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "bound_by": bound[1], "library_ms": None,
+                "device_launches_per_pass": per_pass}
 
     def err_of(*dicts):
         return max(v[1] for d in dicts for v in d.values())
 
-    # no single PyTorch call computes any of these functions, so every
-    # library_ms is null
+    # device_launches_per_pass: the kernel's launches on the card in one
+    # step of its main path (one pass; for the per-step mode one headline
+    # pass), as the C launchers counted them in this run. No single PyTorch
+    # call computes any of these functions, so every library_ms is null
     print(json.dumps({"kernels": [
         row("fdtd_sim", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             launches["fdtd_sim"], err_of(b1), b1_ms, b1_plain_ms,
-            _sim_bound(p)),
+            _sim_bound(p), hl_step["fdtd_cluster_kernel"]),
+        row("fdtd_sim per-step", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
+            b1_step_launches, err_of(b1s), b1_step_ms, b1_plain_ms,
+            _sim_bound(p), step_pass["fdtd_step_kernel"]),
         row("rt60_moments", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
             launches["rt60_moments"], err_of(b2), b2_ms, b2_plain_ms,
-            _moments_bound(p)),
+            _moments_bound(p), hl_step["rt60_moments_kernel"]),
         row("fdtd_sim_tiled", "fdtd_tiled.cu", "ops/fdtd_tiled.py:54",
             xl_launches["fdtd_sim_tiled"], b3_err, b3_large["ms"],
-            b3_large["plain_ms"], _sim_bound(large)),
+            b3_large["plain_ms"], _sim_bound(large),
+            xl_step["fdtd_tiled_kernel"]),
         row("rt60_moments_tiled", "fdtd_tiled.cu", "ops/fdtd_tiled.py:382",
             xl_launches["rt60_moments_tiled"], err_of(b4_xl["vs_plain"]),
-            b4_xl["ms"], b4_xl["plain_ms"], _moments_bound(xp)),
+            b4_xl["ms"], b4_xl["plain_ms"], _moments_bound(xp),
+            xl_step["rt60_moments_tiled_kernel"]),
         row("sharded_round", "solver_rounds.cu",
             "parallel/solver_pallas.py:76", b5_launches,
             err_of(*(r["vs_plain"] for r in b5.values())),
             b5[SHARDED_MESHES[0]]["ms"], b5[SHARDED_MESHES[0]]["plain_ms"],
-            _sim_bound(p)),
+            _sim_bound(p), m_step["round_kernel<false>"]),
         row("banded_round", "solver_rounds.cu",
             "parallel/solver_pallas.py:221", b6_launches, err_of(b6_vs_plain),
-            b6["ms"], b6["plain_ms"], _sim_bound(xp)),
+            b6["ms"], b6["plain_ms"], _sim_bound(xp),
+            xm_step["round_kernel<true>"]),
         row("fdtd_sim_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             v_launches["fdtd_sim_batch"], err_of(b1b), b1b_ms, b1b_plain_ms,
-            _sim_bound(p, nv)),
+            _sim_bound(p, nv), v_step["fdtd_cluster_kernel"]),
         row("rt60_moments_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
             v_launches["rt60_moments_batch"], err_of(b2b), b2b_ms,
-            b2b_plain_ms, _moments_bound(p, nv)),
+            b2b_plain_ms, _moments_bound(p, nv),
+            v_step["rt60_moments_kernel"]),
         row("fdtd_sim bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             h_launches["fdtd_sim"], err_of(b1h), b1h_ms, b1h_plain_ms,
-            _sim_bound(p, state_bytes=2)),
+            _sim_bound(p, state_bytes=2), h_step["fdtd_cluster_kernel"]),
         row("rt60_moments bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
             h_launches["rt60_moments"], err_of(b2h), b2h_ms, b2h_plain_ms,
-            _moments_bound(p, rec_bytes=2)),
+            _moments_bound(p, rec_bytes=2), h_step["rt60_moments_kernel"]),
         row("B5 overlap", "solver_rounds.cu",
             "parallel/solver_pallas.py:550", b5o_launches,
             err_of(*(r["vs_plain"] for r in b5o.values())),
             b5o[OVERLAP_MESHES[0]]["ms"], b5o[OVERLAP_MESHES[0]]["plain_ms"],
-            _sim_bound(p)),
+            _sim_bound(p), s_step["round_kernel<false>"]),
         row("B6 overlap", "solver_rounds.cu",
             "parallel/solver_pallas.py:798", b6o_launches,
             err_of(b6o_vs_plain), b6o["ms"], b6o["plain_ms"],
-            _sim_bound(xp)),
+            _sim_bound(xp), xs_step["round_kernel<true>"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,9 +47,10 @@
 //     on the extended block in global coordinates: beta, A/B/D in x and y,
 //     and the listener mask.
 //   - B6 (kFold = true) reads only beta and the wall admittance Y and folds
-//     the six coefficients in shared memory from the window's own backward
-//     shifts (zero at the window's first row and column) and the global
-//     coordinates of its cells; the listener mask is the test gi == lix &&
+//     the six coefficients in shared memory (common.cuh fold_cell, as B3
+//     does) from the window's own backward shifts (zero at the window's
+//     first row and column) and the global coordinates of its cells; the
+//     listener mask is the test gi == lix &&
 //     gj == liy. The fold's wrong values at the window's first row and
 //     column are again outside the cone of the tile interior.
 //   - A step is the pressure update over the window, a barrier, the
@@ -72,12 +73,14 @@
 // ops/fdtd.py::stencil_coefficients), so each op rounds once as PyTorch's
 // elementwise kernels do. Recording offsets are 64-bit.
 //
-// Launchers allocate nothing, never synchronise, and return
-// cudaGetLastError() (0 on success).
+// Launchers allocate nothing, never synchronise, count their launches
+// (common.cuh) and return cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -207,35 +210,15 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
       const float y_xm = wi > 0 ? s11[w - wy] : 0.0f;
       const float b_ym = wj > 0 ? sbeta[w - 1] : 0.0f;
       const float y_ym = wj > 0 ? s11[w - 1] : 0.0f;
-      const float w_x = (b_xm - beta) * (beta * y_xm + b_xm * Y);
-      const float a_x = beta * b_xm;
-      const float bc_x = w_x * beta;
-      const float d_x = w_x * b_xm;
-      const float w_y = (b_ym - beta) * (beta * y_ym + b_ym * Y);
-      const float a_y = beta * b_ym;
-      const float bc_y = w_y * beta;
-      const float d_y = w_y * b_ym;
-      const int gi = gi0 + ei0 + wi;
-      const int gj = r.gj0 + ej0 + wj;
-      const bool row0 = gi == 0;
-      const bool rowg = gi == r.gx;
-      const bool col0 = gj == 0;
-      const bool colg = gj == r.gy;
-      float eb_x = 0.0f, ed_x = 0.0f, eb_y = 0.0f, ed_y = 0.0f;
-      if (r.absorbing) {  // impedance ABC masked to the in-grid span
-        const float in_gy = gj < r.gy ? 1.0f : 0.0f;
-        const float in_gx = gi < r.gx ? 1.0f : 0.0f;
-        eb_x = -in_gy;
-        ed_x = in_gy;
-        eb_y = -in_gx;
-        ed_y = in_gx;
-      }
-      sax[w] = (row0 || rowg) ? 0.0f : a_x;
-      sbx[w] = row0 ? eb_x : (rowg ? 0.0f : bc_x);
-      sdx[w] = rowg ? ed_x : (row0 ? 0.0f : d_x);
-      say[w] = (col0 || colg) ? 0.0f : a_y;
-      sby[w] = col0 ? eb_y : (colg ? 0.0f : bc_y);
-      sdy[w] = colg ? ed_y : (col0 ? 0.0f : d_y);
+      const pv::Folded k = pv::fold_cell(
+          beta, Y, b_xm, y_xm, b_ym, y_ym, gi0 + ei0 + wi, r.gj0 + ej0 + wj,
+          r.gx, r.gy, r.absorbing != 0);
+      sax[w] = k.ax;
+      sbx[w] = k.bx;
+      sdx[w] = k.dx;
+      say[w] = k.ay;
+      sby[w] = k.by;
+      sdy[w] = k.dy;
     }
     __syncthreads();
   }
@@ -330,16 +313,6 @@ __global__ void __launch_bounds__(kMaxThreads) round_kernel(Round r) {
   }
 }
 
-// Opt in to more than 48 KB of dynamic shared memory. A refused size leaves
-// no error pending, so the next launch reports its own.
-int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) cudaGetLastError();
-  return (int)err;
-}
-
 template <bool kFold>
 int launch_round(const Round& r, int nwin, void* stream) {
   const int wx = r.tile_x + 2 * r.halo;
@@ -352,11 +325,12 @@ int launch_round(const Round& r, int nwin, void* stream) {
   const dim3 grid((r.by + r.tile_y - 1) / r.tile_y,
                   (r.rows + r.tile_x - 1) / r.tile_x, nwin);
   const size_t smem = round_smem_bytes(r.tile_x, r.tile_y, r.halo);
-  const int err = set_smem((const void*)round_kernel<kFold>, smem);
+  const int err = pv::set_smem((const void*)round_kernel<kFold>, smem);
   if (err != 0) return err;
   round_kernel<kFold><<<grid, block, smem,
                         static_cast<cudaStream_t>(stream)>>>(r);
-  return (int)cudaGetLastError();
+  return pv::count_launch(kFold ? pv::kBandedRoundKernel
+                                : pv::kShardedRoundKernel);
 }
 
 }  // namespace

@@ -8,8 +8,10 @@ unchanged one loads the existing library. Nothing is built or loaded at
 import time: the CPU-only test environment imports this module too.
 
 A failed build raises with the compiler's output; there is no fallback.
-The launch counters live on the wrappers in ``ops/fdtd_fused.py``,
-``ops/fdtd_tiled.py`` and ``parallel/solver_fused.py``.
+The wrappers' launch counters live on the wrappers in
+``ops/fdtd_fused.py``, ``ops/fdtd_tiled.py`` and
+``parallel/solver_fused.py``; the card's launches of each kernel are
+counted by the C launchers and read with :func:`device_launches`.
 """
 
 from __future__ import annotations
@@ -22,11 +24,14 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc", "build", "library", "check"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DEVICE_KERNELS", "nvcc", "build",
+           "library", "check", "device_launches"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu", "solver_rounds.cu")
+# included by the sources: part of the build's tag
+_HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # -fmad=false: no multiply-add contraction, so every op rounds once, as in
@@ -41,16 +46,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # 7 field planes, pulse, rec, accumulators, velocity buffers, [B, 2]
-    # listener cells, nx, ny, T, B, bf16, courant, thr, src_dir_n, dry_n,
-    # wet_n, stream
-    "pv_fdtd_sim": [_P] * 12 + [_I] * 5 + [_F] * 5 + [_P],
+    # listener cells, nx, ny, T, B, bf16, cluster, courant, thr, src_dir_n,
+    # dry_n, wet_n, stream
+    "pv_fdtd_sim": [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P],
+    # nx, ny, bf16 -> clusters of B1's cluster mode the card holds at once
+    "pv_fdtd_cluster_occupancy": [_I] * 3,
     # rec, onset, s0, s1, nx, ny, T, B, bf16, dry_n + 1, end, log10_scale,
     # stream
     "pv_rt60_moments": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
-    # 7 field planes, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state
-    # slots, nx, ny, T, tile_x, tile_y, k, lix, liy, courant, thr,
-    # src_dir_n, dry_n, wet_n, stream
-    "pv_fdtd_sim_tiled": [_P] * 21 + [_I] * 8 + [_F] * 5 + [_P],
+    # beta, Y, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state slots,
+    # grid-barrier words, nx, ny, T, tile_x, tile_y, k, lix, liy, gx, gy,
+    # absorbing, courant, thr, src_dir_n, dry_n, wet_n, stream
+    "pv_fdtd_sim_tiled": [_P] * 17 + [_I] * 11 + [_F] * 5 + [_P],
+    # the same, then dry and global_acc (probe_tiled.py, chip_smoke.py)
+    "pv_fdtd_sim_tiled_probe": [_P] * 17 + [_I] * 11 + [_F] * 5 + [_I] * 2
+                               + [_P],
     # rec, onset, s0, s1, nx, ny, T, chunk, dry_n + 1, end, log10_scale,
     # stream
     "pv_rt60_moments_tiled": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
@@ -63,7 +73,15 @@ _SIGNATURES = {
     # gj0, lix, liy, gx, gy, absorbing, courant, thr, src_dir_n, dry_n,
     # wet_n, stream
     "pv_banded_round": [_P] * 6 + [_I] * 18 + [_F] * 5 + [_P],
+    # out[n], n, reset -> the number of kernels counted
+    "pv_device_launches": [_P, _I, _I],
 }
+
+# The library's kernels in the order of csrc/common.cuh DeviceKernel.
+DEVICE_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel",
+                  "rt60_moments_kernel", "fdtd_tiled_kernel",
+                  "rt60_moments_tiled_kernel", "round_kernel<false>",
+                  "round_kernel<true>")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -82,7 +100,7 @@ def nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -154,6 +172,18 @@ def library() -> ctypes.CDLL:
             lib.pv_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def device_launches(reset: bool = False) -> dict[str, int]:
+    """The card's launches of each kernel of :data:`DEVICE_KERNELS` since
+    the counts were last reset, as the C launchers count them (one a launch
+    the runtime accepted); ``reset`` zeroes them after reading."""
+    counts = (ctypes.c_longlong * len(DEVICE_KERNELS))()
+    n = library().pv_device_launches(counts, len(DEVICE_KERNELS), int(reset))
+    if n != len(DEVICE_KERNELS):
+        raise RuntimeError(f"the kernel library counts {n} kernels, "
+                           f"DEVICE_KERNELS names {len(DEVICE_KERNELS)}")
+    return dict(zip(DEVICE_KERNELS, counts))
 
 
 def check(err: int, name: str) -> None:

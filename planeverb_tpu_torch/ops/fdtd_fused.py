@@ -8,7 +8,10 @@ of the same function, and a wrapper for one listener and one for B:
     the pre-injection pressure, streaming the onset, the source-directivity
     flux and the windowed energies. :func:`fdtd_sim` for one listener,
     :func:`fdtd_sim_batch` for B listeners in one pass (its ``batched``
-    mode: the B listeners share the field planes, one launch a step).
+    mode: the B listeners share the field planes). Up to
+    :data:`CLUSTER_CELLS` cells a pass is one launch, a thread-block
+    cluster a listener holding the field on chip for all T steps; above
+    it, one launch a step (:func:`b1_mode`).
   - B2 (replaces ``fdtd_pallas.py::_moments_kernel``): one backward pass
     over the recording for the RT60 regression moments.
     :func:`rt60_moments`, :func:`rt60_moments_batch`.
@@ -51,8 +54,9 @@ from planeverb_tpu_torch.ops._common import (check_field, coefficients,
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
 
-__all__ = ["STATE_DTYPES", "fdtd_sim", "fdtd_sim_reference",
-           "fdtd_sim_batch", "fdtd_sim_batch_reference", "rt60_moments",
+__all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
+           "fdtd_sim_reference", "fdtd_sim_per_step", "fdtd_sim_batch",
+           "fdtd_sim_batch_reference", "rt60_moments",
            "rt60_moments_reference", "rt60_moments_batch",
            "rt60_moments_batch_reference", "simulate_moments_fused",
            "simulate_moments_fused_reference", "simulate_moments_fused_batch",
@@ -61,6 +65,9 @@ __all__ = ["STATE_DTYPES", "fdtd_sim", "fdtd_sim_reference",
 
 # the wave-state types of B1 (and recording types of B2)
 STATE_DTYPES = (torch.float32, torch.bfloat16)
+# the most cells B1's cluster mode holds: 16 blocks of 768 threads, three
+# cells a thread (csrc/fdtd_fused.cu kCluster, kClusterThreads, kClusterRun)
+CLUSTER_CELLS = 16 * 768 * 3
 
 
 def _listener_cells(where: str, lcells) -> list[tuple[int, int]]:
@@ -134,10 +141,26 @@ def fdtd_sim_reference(params: GridParams, beta, refl, pulse,
     return FdtdResult(*(x[0] for x in res)), tuple(x[0] for x in acc)
 
 
+def b1_mode(nx: int, ny: int, state_dtype, B: int) -> str:
+    """B1's kernel mode for a pass, chosen before launch from the kernel's
+    capacity alone: ``"cluster"`` (one thread-block cluster a listener
+    holds the field for all T steps, one launch a pass) for every field of
+    at most :data:`CLUSTER_CELLS` cells, in float32 and bf16 and for any
+    number of listeners B; ``"step"`` (one launch a step) above it. The
+    route (``pipeline_auto``, :data:`TILED_MIN_CELLS`) sends B1 no grid
+    above the cluster's capacity."""
+    if state_dtype not in STATE_DTYPES or B < 1 or min(nx, ny) < 1:
+        raise ValueError(f"b1_mode: no mode for {nx}x{ny}, {state_dtype}, "
+                         f"B = {B}")
+    return "cluster" if nx * ny <= CLUSTER_CELLS else "step"
+
+
 def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
-                     state_dtype):
+                     state_dtype, mode=None):
     nx, ny, T = params.nx, params.ny, params.response_length
     B = len(cells)
+    if mode is None:
+        mode = b1_mode(nx, ny, state_dtype, B)
     courant, thr, src_dir_n, dry_n, wet_n = window_scalars(params,
                                                            state_dtype)
     coefs = coefficients(params, beta, refl)
@@ -146,7 +169,10 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
     dev = beta.device
     rec = torch.empty((B, T, nx, ny), dtype=state_dtype, device=dev)
     acc = torch.empty((6, B, nx, ny), dtype=torch.float32, device=dev)
-    vel = torch.empty((B, 4, nx, ny), dtype=state_dtype, device=dev)
+    # the per-step mode's velocity buffers; the cluster mode keeps its state
+    # on chip
+    vel = (torch.empty((B, 4, nx, ny), dtype=state_dtype, device=dev)
+           if mode == "step" else None)
     # the [B, 2] listener table, copied without a host sync
     lc = torch.tensor(cells, dtype=torch.int32).pin_memory().to(
         dev, non_blocking=True)
@@ -155,9 +181,10 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pv_fdtd_sim(
             *(f.data_ptr() for f in fields), pulse.data_ptr(),
-            rec.data_ptr(), acc.data_ptr(), vel.data_ptr(), lc.data_ptr(),
-            nx, ny, T, B, int(state_dtype == torch.bfloat16), courant, thr,
-            src_dir_n, dry_n, wet_n, stream)
+            rec.data_ptr(), acc.data_ptr(),
+            None if vel is None else vel.data_ptr(), lc.data_ptr(), nx, ny,
+            T, B, int(state_dtype == torch.bfloat16), int(mode == "cluster"),
+            courant, thr, src_dir_n, dry_n, wet_n, stream)
     return err, rec, acc
 
 
@@ -194,8 +221,9 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int,
 def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
                    state_dtype=torch.float32):
     """B1 for B listeners in one pass (the TPU kernel's batched mode): one
-    launch a step advances every listener, all reading one copy of the
-    field planes. Bit-equal to B :func:`fdtd_sim` passes.
+    launch (B clusters; or one a step above :data:`CLUSTER_CELLS`)
+    advances every listener, all reading one copy of the field planes.
+    Bit-equal to B :func:`fdtd_sim` passes.
 
     ``lcells`` is a host [B, 2] integer array-like of listener cells; the
     other arguments as :func:`fdtd_sim`. Returns (FdtdResult,
@@ -213,6 +241,28 @@ def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
     fdtd_sim_batch.launches += 1
     onset, fx, fy, ed, ew, et = acc
     return (FdtdResult(pressure=rec, onset=onset, flux_x=fx, flux_y=fy),
+            (ed, ew, et))
+
+
+@counted
+def fdtd_sim_per_step(params: GridParams, beta, refl, pulse, lix: int,
+                      liy: int, state_dtype=torch.float32):
+    """:func:`fdtd_sim` in B1's per-step mode at any size: one launch a
+    step, the mode :func:`b1_mode` takes above :data:`CLUSTER_CELLS`.
+    ``chip_smoke.py`` holds the cluster mode to it; the engine does not
+    call it."""
+    where = "fdtd_sim_per_step"
+    _check_sim(where, params, beta, refl, pulse, state_dtype)
+    lix, liy = int(lix), int(liy)
+    if not on_card(where, beta, refl, pulse):
+        return fdtd_sim_reference(params, beta, refl, pulse, lix, liy,
+                                  state_dtype)
+    err, rec, acc = _launch_fdtd_sim(params, beta, refl, pulse,
+                                     [(lix, liy)], state_dtype, mode="step")
+    kernels.check(err, where)
+    fdtd_sim_per_step.launches += 1
+    onset, fx, fy, ed, ew, et = (a[0] for a in acc)
+    return (FdtdResult(pressure=rec[0], onset=onset, flux_x=fx, flux_y=fy),
             (ed, ew, et))
 
 
@@ -316,14 +366,13 @@ def simulate_moments_fused_batch(params: GridParams, beta, refl, pulse,
 
 
 # Grids of more than this many solver cells (nx * ny) take the tiled route
-# (B3 + B4, ops/fdtd_tiled.py); smaller ones the one-launch-per-step B1 +
-# B2. chip_smoke.py phase 10 measures the crossover. On an H100 80GB HBM3
-# at 700 W, B3 + B4 against B1 + B2 took 4.8 vs 6.9 ms at 261^2, 8.0 vs
-# 12.0 ms at 459^2 and 42.7 vs 102.2 ms at 964^2; at 192^2 the order
-# changes from run to run (4.2 vs 5.1 ms, and 5.8 vs 5.1 ms in another
-# run), inside the noise. So the threshold sits at the headline's 192^2 =
-# 36,864 cells: the headline and every calibration grid (at most 25 m, so
-# at most 192^2) stay on B1 + B2, and every larger grid is tiled.
+# (B3 + B4, ops/fdtd_tiled.py); smaller ones B1 (its cluster mode) + B2.
+# chip_smoke.py phase 10 measures the crossover (PERF.md). The threshold
+# sits at the headline's 192^2 = 36,864 cells, which is also the most B1's
+# cluster mode holds: the headline, batches of listeners and every
+# calibration grid (at most 25 m, so at most 192^2) stay on B1 + B2, and
+# every larger grid is tiled. On an H100 the redesigned B3 + B4 now beat B1
+# + B2 for one listener at 192^2 too (ROADMAP records the move).
 TILED_MIN_CELLS = 192 * 192
 
 

@@ -33,39 +33,55 @@ import torch
 import torch.nn.functional as F
 
 from planeverb_tpu_torch import kernels
-from planeverb_tpu_torch.config import GridParams
+from planeverb_tpu_torch.config import BoundaryType, GridParams
 from planeverb_tpu_torch.ops._common import (check_field, coefficients,
                                              counted, fresh_acc,
                                              moment_scalars, moment_step,
                                              moments_shape, on_card,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import Moments
-from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
+from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
+                                          fdtd_step_folded)
 
-__all__ = ["TILES", "HALO", "CHUNK", "pick_tile", "fdtd_sim_tiled",
+__all__ = ["TILES", "HALO", "CHUNK", "RUN", "MAX_THREADS", "block_shape",
+           "pick_tile", "fdtd_sim_tiled", "fdtd_sim_tiled_probe",
            "fdtd_sim_tiled_reference", "rt60_moments_tiled",
            "rt60_moments_tiled_reference", "simulate_moments_tiled",
            "simulate_moments_tiled_reference"]
 
 # Interior tiles the card's kernel chooses from, with HALO the border and
-# steps per launch. probe_tiled.py sweeps the tilings: on an H100 80GB HBM3
-# at 700 W a 32 x 64 interior (a 48 x 80 window: 10 planes plus the tile's
-# 6 accumulator planes, 203 KB of shared memory) was the fastest at k = 8
-# at 459^2 and 964^2, and 32 x 32 (117 KB) at 192^2 and 261^2, whose
-# 32 x 64 tiles leave most SMs idle. Each holds one block per SM;
-# :func:`pick_tile` chooses between them.
-TILES = ((32, 64), (32, 32))
-HALO = 8
+# steps per round. probe_tiled.py sweeps the tilings (PERF.md has its
+# numbers): on an H100 80GB HBM3 at 700 W a 20 x 52 interior (a 32 x 64
+# window, one 512-thread block per SM) is among the fastest at 459^2 and
+# 964^2 with one k for both (k = 5 and 7 each won at one size), and
+# 20 x 20 (a 32 x 32 window) at 192^2, where 20 x 52 tiles leave most SMs
+# idle. :func:`pick_tile` chooses between them.
+TILES = ((20, 52), (20, 20))
+HALO = 6
 # B4: reverse chunks of CHUNK steps (any chunk gives the same result). In
 # probe_tiled.py's sweeps on the H100, chunks of 32 to 4096 ran within
 # 10 % of B2 at 261^2 to 964^2, chunks of 8 up to 18 % behind it.
 CHUNK = 32
+# Rows of a window column each thread of the card's kernel holds
+# (csrc/fdtd_tiled.cu kRun), and the most threads a block takes (its
+# __launch_bounds__): about 110 registers a thread hold one 512-thread block
+# per SM.
+RUN = 4
+MAX_THREADS = 512
+
+
+def block_shape(tile_x: int, tile_y: int, k: int) -> tuple[int, int]:
+    """(lanes, runs) of a B3 block on the card: one thread a window column,
+    rounded up to whole warps of 32, by runs of :data:`RUN` window rows. A
+    block of more than :data:`MAX_THREADS` fails at launch and raises."""
+    lanes = -(-(tile_y + 2 * k) // 32) * 32
+    return lanes, -(-(tile_x + 2 * k) // RUN)
 
 
 def pick_tile(nx: int, ny: int, halo: int, n_sm: int) -> tuple[int, int]:
     """The tile of :data:`TILES` with the least modelled round time on a
-    card with ``n_sm`` SMs: waves of blocks (one block per SM) times the
-    cells of a window. Ties go to the earlier tile."""
+    card with ``n_sm`` SMs: the blocks the busiest SM steps one after
+    another times the cells of a window. Ties go to the earlier tile."""
     def cost(tile):
         tx, ty = tile
         blocks = -(-nx // tx) * -(-ny // ty)
@@ -165,27 +181,37 @@ def fdtd_sim_tiled_reference(params: GridParams, beta, refl, pulse,
 
 
 def _launch_fdtd_sim_tiled(params: GridParams, beta, refl, pulse,
-                           lix: int, liy: int, tx: int, ty: int, k: int):
+                           lix: int, liy: int, tx: int, ty: int, k: int,
+                           probe=None):
+    """The card's B3 pass: one cooperative launch (the C launcher keeps the
+    accumulators in shared memory where they fit). ``probe``: (dry,
+    global_acc) of :func:`fdtd_sim_tiled_probe`, through the probe's own
+    entry point."""
     nx, ny, T = params.nx, params.ny, params.response_length
     courant, thr, src_dir_n, dry_n, wet_n = window_scalars(params)
-    coefs = coefficients(params, beta, refl)
-    fields = [c.contiguous() for c in (beta, *coefs)]
+    # the kernel folds the coefficients from beta and the admittance
+    fields = [beta.contiguous(), admittance(refl).contiguous()]
     pulse = pulse.contiguous()
     dev = beta.device
     rec = torch.empty((T, nx, ny), dtype=torch.float32, device=dev)
     acc = torch.empty((6, nx, ny), dtype=torch.float32, device=dev)
     state = torch.empty((2, 3, nx, ny), dtype=torch.float32, device=dev)
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    absorbing = params.boundary_type == BoundaryType.ABSORBING
     lib = kernels.library()
+    args = (*(f.data_ptr() for f in fields), pulse.data_ptr(),
+            rec.data_ptr(), *(a.data_ptr() for a in acc),
+            *(s.data_ptr() for s in state.flatten(0, 1)), bar.data_ptr(),
+            nx, ny, T, tx, ty, k, lix, liy, params.grid_x, params.grid_y,
+            int(absorbing), courant, thr, src_dir_n, dry_n, wet_n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pv_fdtd_sim_tiled(
-            *(f.data_ptr() for f in fields), pulse.data_ptr(),
-            rec.data_ptr(), *(a.data_ptr() for a in acc),
-            *(s.data_ptr() for s in state.flatten(0, 1)), nx, ny, T,
-            tx, ty, k, lix, liy, courant, thr, src_dir_n, dry_n, wet_n,
-            stream)
+        if probe is None:
+            err = lib.pv_fdtd_sim_tiled(*args, stream)
+        else:
+            err = lib.pv_fdtd_sim_tiled_probe(*args, *map(int, probe),
+                                              stream)
     kernels.check(err, "fdtd_sim_tiled")
-    fdtd_sim_tiled.launches += 1
     onset, fx, fy, ed, ew, et = acc.unbind(0)
     return (FdtdResult(pressure=rec, onset=onset, flux_x=fx, flux_y=fy),
             (ed, ew, et))
@@ -200,9 +226,10 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
     interior (int or (x, y)) and ``halo`` the border and steps per round
     (default :data:`HALO`). Without a tile the card's kernel takes
     :func:`pick_tile`'s and the plain version the first of :data:`TILES`;
-    the results do not depend on it. On the card a window the kernel cannot
-    hold (wider than 1024 cells or beyond the shared memory limit) fails at
-    launch and raises.
+    the results do not depend on it. On the card the pass is one
+    cooperative launch; a window the kernel cannot hold (more than
+    :data:`MAX_THREADS` threads, :func:`block_shape`) fails at launch and
+    raises.
     """
     where = "fdtd_sim_tiled"
     nx, ny = params.nx, params.ny
@@ -212,14 +239,38 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
     tx, ty, k = _tiling(tile, halo)
     lix, liy = int(lix), int(liy)
     if on_card(where, beta, refl, pulse):
+        n_sm = torch.cuda.get_device_properties(
+            beta.device).multi_processor_count
         if tile is None:
-            n_sm = torch.cuda.get_device_properties(
-                beta.device).multi_processor_count
             tx, ty = pick_tile(nx, ny, k, n_sm)
-        return _launch_fdtd_sim_tiled(params, beta, refl, pulse, lix, liy,
-                                      tx, ty, k)
+        out = _launch_fdtd_sim_tiled(params, beta, refl, pulse, lix, liy,
+                                     tx, ty, k)
+        fdtd_sim_tiled.launches += 1
+        return out
     return fdtd_sim_tiled_reference(params, beta, refl, pulse, lix, liy,
                                     tile=(tx, ty), halo=k)
+
+
+def fdtd_sim_tiled_probe(params: GridParams, beta, refl, pulse, lix: int,
+                         liy: int, tile, halo, *, dry: bool = False,
+                         global_acc: bool = False):
+    """B3's card kernel with a probe's options, for ``probe_tiled.py`` and
+    ``chip_smoke.py``; the engine never calls it, and it counts in no
+    wrapper's ``launches``. ``dry``: every round loads, folds and writes
+    back its windows but runs no step (the cost of those alone; the
+    recording is left unwritten). ``global_acc``: the accumulators stay in
+    global memory where they would fit shared memory (the kernel's mode
+    above ~1100^2 cells). CUDA tensors only: the plain version has neither
+    option."""
+    where = "fdtd_sim_tiled_probe"
+    check_field(where, "beta", beta, (params.nx, params.ny))
+    if not on_card(where, beta, refl, pulse):
+        raise ValueError(f"{where}: needs CUDA tensors (a probe of the card's "
+                         f"kernel), got {beta.device}")
+    tx, ty, k = _tiling(tile, halo)
+    return _launch_fdtd_sim_tiled(params, beta, refl, pulse, int(lix),
+                                  int(liy), tx, ty, k,
+                                  probe=(dry, global_acc))
 
 
 # ------------------------------------------------------------- B4 moments

@@ -7,9 +7,13 @@ For HugeRoom at 750 Hz, listener at the center, at 25, 34, 60 and 126 m
 (192^2, 261^2, 459^2 and 964^2 solver cells) it prints, as CUDA-event
 medians beside the card's ``nvidia-smi`` name and power limit:
 
-  - B3 ``fdtd_sim_tiled`` for each tiling of TILINGS (interior tile, halo),
-    each held bit-equal to the first, and the tile ``pick_tile`` chooses:
-    the measurement behind ``fdtd_tiled.TILES``, ``HALO`` and
+  - B3 ``fdtd_sim_tiled`` for each tiling of TILINGS (interior tile,
+    halo), its one cooperative launch with the accumulators where the
+    kernel puts them (shared memory, where they fit) and forced to global
+    memory (``fdtd_tiled.fdtd_sim_tiled_probe``), each held bit-equal to B1
+    ``fdtd_sim``, with the time of the same pass with 0-step rounds (the
+    windows' loads, fold and write-back alone), and the tile ``pick_tile``
+    chooses: the measurement behind ``fdtd_tiled.TILES``, ``HALO`` and
     ``pick_tile``;
   - B4 ``rt60_moments_tiled`` for each chunk of CHUNKS against B2
     ``rt60_moments`` on B3's recording, timed in turns, each bit-equal to
@@ -29,9 +33,10 @@ import subprocess
 import sys
 
 SIZES = (25.0, 34.0, 60.0, 126.0)
-# (interior tile, halo = steps per launch)
-TILINGS = (((32, 64), 8), ((32, 32), 8), ((48, 48), 8), ((64, 32), 8),
-           ((32, 32), 6), ((32, 32), 4), ((32, 32), 16), ((24, 24), 4))
+# (interior tile, halo = steps per round): 32 x 64 windows (512-thread
+# blocks) and 32 x 32 windows (256 threads), k from 4 to 8
+TILINGS = (((20, 52), 6), ((20, 20), 6), ((18, 50), 7), ((22, 54), 5),
+           ((16, 48), 8), ((24, 56), 4), ((24, 24), 4))
 # B4's reverse chunks; 4096 > T is one chunk, B2's walk
 CHUNKS = (8, 32, 128, 4096)
 
@@ -100,24 +105,35 @@ def main() -> int:
         row = {"shape": shape, "pick_tile": fdtd_tiled.pick_tile(
             p.nx, p.ny, fdtd_tiled.HALO, n_sm), "b3_ms": {}, "b4_ms": {}}
 
-        # -- B3 tilings, each bit-equal to the first
-        first = None
+        # -- B3 tilings, the accumulators where the kernel puts them and
+        # in global memory, each bit-equal to B1; full passes and passes of
+        # 0-step rounds timed in turns
+        ref = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy)
+        first = (*ref[0], *ref[1])
+        del ref
         for tile, halo in TILINGS:
-            def b3(tile=tile, halo=halo):
-                return fdtd_tiled.fdtd_sim_tiled(p, beta, refl, pulse, lix,
-                                                 liy, tile=tile, halo=halo)
-            res, acc = b3()
-            torch.cuda.synchronize()
-            flat = (*res, *acc)
-            if first is None:
-                first = flat
-            elif not all(map(torch.equal, flat, first)):
-                raise RuntimeError(f"B3 {tile} k={halo} differs at {shape}")
-            del res, acc, flat
-            ms = _in_turns({"b3": b3}, args.reps)["b3"]
-            key = f"{tile[0]}x{tile[1]} k={halo}"
-            row["b3_ms"][key] = ms
-            print(f"{shape} B3 {key}: {ms:.3f} ms", flush=True)
+            for global_acc in (False, True):
+                def b3(tile=tile, halo=halo, global_acc=global_acc,
+                       dry=False):
+                    return fdtd_tiled.fdtd_sim_tiled_probe(
+                        p, beta, refl, pulse, lix, liy, tile, halo, dry=dry,
+                        global_acc=global_acc)
+                res, acc = b3()
+                torch.cuda.synchronize()
+                if not all(map(torch.equal, (*res, *acc), first)):
+                    raise RuntimeError(f"B3 {tile} k={halo} global_acc="
+                                       f"{global_acc} differs from B1 at "
+                                       f"{shape}")
+                del res, acc
+                ms = _in_turns({"full": b3,
+                                "dry": lambda b3=b3: b3(dry=True)},
+                               args.reps)
+                key = (f"{tile[0]}x{tile[1]} k={halo} accumulators "
+                       f"{'global' if global_acc else 'auto'}")
+                row["b3_ms"][key] = ms
+                print(f"{shape} B3 {key}: {ms['full']:.3f} ms, 0-step "
+                      f"rounds {ms['dry']:.3f} ms, bit-equal to B1",
+                      flush=True)
         rec, onset = first[0], first[1]
         del first
 

@@ -107,3 +107,97 @@ def test_other_devices_raise(case):
     with pytest.raises(ValueError, match="float32"):
         fdtd_fused.fdtd_sim(p, b.double(), r, pl, lix, liy)
     assert fdtd_fused.fdtd_sim.launches == 0
+
+
+@pytest.mark.parametrize("nx,ny", [(192, 192), (1, 192 * 192),
+                                   (192 * 192, 1), (8, 192), (192, 8),
+                                   (29, 29), (16, 306), (96, 384)])
+@pytest.mark.parametrize("dtype", fdtd_fused.STATE_DTYPES)
+@pytest.mark.parametrize("B", [1, 4])
+def test_b1_mode_cluster_up_to_tiled_min_cells(nx, ny, dtype, B):
+    """B1 takes its cluster mode (one launch a pass) for every grid the
+    engine routes to it: every shape of at most TILED_MIN_CELLS cells,
+    thin ones included, float32 and bf16, any number of listeners. The
+    cluster holds that many cells."""
+    assert nx * ny <= fdtd_fused.TILED_MIN_CELLS <= fdtd_fused.CLUSTER_CELLS
+    assert fdtd_fused.b1_mode(nx, ny, dtype, B) == "cluster"
+
+
+@pytest.mark.parametrize("nx,ny", [(193, 192), (1, 192 * 192 + 1),
+                                   (459, 459), (964, 964)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_b1_mode_per_step_above(nx, ny, B):
+    assert fdtd_fused.b1_mode(nx, ny, torch.float32, B) == "step"
+    assert fdtd_fused.b1_mode(nx, ny, torch.bfloat16, B) == "step"
+
+
+@pytest.mark.parametrize("threshold", [0, 96 * 96, 10 ** 9])
+def test_b1_mode_ignores_the_route(monkeypatch, threshold):
+    """B1's mode follows the cluster's capacity (CLUSTER_CELLS), not the
+    route's TILED_MIN_CELLS: moving the route's threshold moves no
+    mode."""
+    monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", threshold)
+    n = fdtd_fused.CLUSTER_CELLS
+    assert fdtd_fused.b1_mode(1, n, torch.float32, 1) == "cluster"
+    assert fdtd_fused.b1_mode(1, n + 1, torch.float32, 1) == "step"
+    assert fdtd_fused.b1_mode(192, 192, torch.bfloat16, 4) == "cluster"
+    assert fdtd_fused.b1_mode(459, 459, torch.float32, 4) == "step"
+
+
+def test_device_kernels_match_the_library_enum():
+    """kernels.DEVICE_KERNELS names the C launchers' launch counters in
+    the order of csrc/common.cuh's DeviceKernel enum."""
+    import os
+    import re
+
+    from planeverb_tpu_torch import kernels
+
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                           "common.cuh")) as f:
+        body = re.search(r"enum DeviceKernel : int \{(.*?)\};", f.read(),
+                         re.S).group(1)
+    names = [n.strip().split("=")[0].strip() for n in body.split(",")]
+    names = [n for n in names if n and n != "kDeviceKernels"]
+
+    def camel(name):
+        base, _, arg = name.partition("<")
+        return "k" + "".join(w.title() for w in base.split("_")) + {
+            "false>": "", "true>": ""}.get(arg, "")
+
+    expect = [camel(n) for n in kernels.DEVICE_KERNELS]
+    expect[-2:] = ["kShardedRoundKernel", "kBandedRoundKernel"]
+    assert names == expect
+
+
+def test_b1_mode_rejects_what_it_has_no_mode_for():
+    with pytest.raises(ValueError, match="no mode"):
+        fdtd_fused.b1_mode(192, 192, torch.float16, 1)
+    with pytest.raises(ValueError, match="no mode"):
+        fdtd_fused.b1_mode(192, 192, torch.float32, 0)
+    with pytest.raises(ValueError, match="no mode"):
+        fdtd_fused.b1_mode(0, 192, torch.float32, 1)
+
+
+def test_calibration_grids_take_the_cluster_mode():
+    """Every calibration grid (at most CAL_SIZE_M square, up to 750 Hz)
+    fits the cluster mode."""
+    from planeverb_tpu_torch.core import free_grid
+
+    for res in (275, 500, 750):
+        p = tcfg.compute_grid_params(tcfg.PlaneverbConfig(
+            free_grid.CAL_SIZE_M, free_grid.CAL_SIZE_M, res))
+        assert fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, 1) == "cluster"
+
+
+def test_per_step_wrapper_takes_plain_path_on_cpu(case):
+    p, (b, r, pl), (lix, liy), _ = case
+    fdtd_fused.reset_launch_counts()
+    for dtype in fdtd_fused.STATE_DTYPES:
+        got = fdtd_fused.fdtd_sim_per_step(p, b, r, pl, lix, liy, dtype)
+        ref = fdtd_fused.fdtd_sim_reference(p, b, r, pl, lix, liy, dtype)
+        for a, g in zip((*ref[0], *ref[1]), (*got[0], *got[1])):
+            assert torch.equal(a, g)
+    assert fdtd_fused.fdtd_sim_per_step.launches == 0
+    with pytest.raises(ValueError, match="meta"):
+        fdtd_fused.fdtd_sim_per_step(p, b.to("meta"), r.to("meta"),
+                                     pl.to("meta"), lix, liy)

@@ -33,7 +33,9 @@ CFG = tcfg.PlaneverbConfig(10.0, 10.0, 275)
 # (T, tile, halo); with 8 x 8 tiles the listener cell (14, 14) lies 2 cells
 # from a tile edge, inside the halo of its neighbours' windows
 CASES = [(70, (8, 8), 4), (33, (16, 8), 3), (64, (24, 16), 8),
-         (70, (32, 32), 16)]
+         (70, (32, 32), 16),
+         # the card's tilings (fdtd_tiled.TILES at HALO)
+         *((70, tile, fdtd_tiled.HALO) for tile in fdtd_tiled.TILES)]
 OUTPUTS = ("pressure", "onset", "flux_x", "flux_y", "e_dry", "e_wet",
            "e_total")
 
@@ -202,11 +204,71 @@ def test_routing_threshold(monkeypatch):
 
 def test_pick_tile():
     """On a 132-SM card the tile model picks what the H100 measured
-    fastest: 32 x 32 at 192^2 and 261^2 (32 x 64 tiles would leave most
-    SMs idle), 32 x 64 at 459^2 and 964^2."""
-    picks = {n: fdtd_tiled.pick_tile(n, n, 8, 132)
+    fastest (probe_tiled.py): 20 x 52 at 459^2 and 964^2, whose busiest SM
+    steps 2 and 8 windows of 32 x 64; 20 x 20 on the small grids, where
+    20 x 52 tiles would leave most SMs idle."""
+    assert fdtd_tiled.TILES == ((20, 52), (20, 20)) and fdtd_tiled.HALO == 6
+    picks = {n: fdtd_tiled.pick_tile(n, n, fdtd_tiled.HALO, 132)
              for n in (192, 261, 459, 964)}
-    assert picks == {192: (32, 32), 261: (32, 32), 459: (32, 64),
-                     964: (32, 64)}
-    assert fdtd_tiled.pick_tile(29, 29, 8, 132) == (32, 32)
-    assert fdtd_tiled.pick_tile(964, 964, 8, 1) == (32, 64)
+    assert picks == {192: (20, 20), 261: (20, 52), 459: (20, 52),
+                     964: (20, 52)}
+    assert fdtd_tiled.pick_tile(29, 29, 6, 132) == (20, 20)
+    assert fdtd_tiled.pick_tile(964, 964, 6, 1) == (20, 52)
+
+
+@pytest.mark.parametrize("tile,k,shape", [
+    ((20, 52), 6, (64, 8)),      # a 32 x 64 window, 512 threads
+    ((20, 20), 6, (32, 8)),      # 32 x 32, 256 threads
+    ((17, 33), 5, (64, 7)),      # 27 x 43: lanes and runs rounded up
+])
+def test_block_shape(tile, k, shape):
+    """A block on the card is a thread a window column, rounded up to whole
+    warps, by runs of RUN rows; the card's tilings stay within its thread
+    bound."""
+    lanes, runs = fdtd_tiled.block_shape(*tile, k)
+    assert (lanes, runs) == shape
+    assert lanes % 32 == 0 and lanes >= tile[1] + 2 * k
+    assert runs * fdtd_tiled.RUN >= tile[0] + 2 * k
+    for t in fdtd_tiled.TILES:
+        lanes, runs = fdtd_tiled.block_shape(*t, fdtd_tiled.HALO)
+        assert lanes * runs <= fdtd_tiled.MAX_THREADS
+
+
+# rigid outer walls: the fold's edge terms without the ABC (the B3 kernel
+# folds them itself, as B6 does)
+RIGID_CASES = [(70, (8, 8), 4), (33, (16, 8), 3),
+               *((70, tile, fdtd_tiled.HALO) for tile in fdtd_tiled.TILES)]
+
+
+@pytest.mark.parametrize("T,tile,halo", RIGID_CASES,
+                         ids=[f"T{c[0]}-{c[1][0]}x{c[1][1]}-k{c[2]}"
+                              for c in RIGID_CASES])
+def test_tiled_reference_equals_untiled_rigid(T, tile, halo):
+    """With grid_boundary_type REFLECTING the tiled plain version is
+    torch.equal to the untiled one, and differs from the absorbing run: an
+    open field (no walls), so the pulse reaches the grid's edges."""
+    p, (beta, refl, pulse), (lix, liy) = _setup(T)
+    rigid = dataclasses.replace(p, boundary_type=tcfg.BoundaryType.REFLECTING)
+    b, r, pl = fields_from_numpy(np.ones_like(beta), np.zeros_like(refl),
+                                 pulse, device="cpu")
+    ref = _named(*fdtd_fused.fdtd_sim_reference(rigid, b, r, pl, lix, liy))
+    got = _named(*fdtd_tiled.fdtd_sim_tiled_reference(
+        rigid, b, r, pl, lix, liy, tile=tile, halo=halo))
+    for name in OUTPUTS:
+        assert torch.equal(got[name], ref[name]), name
+    absorbing = fdtd_fused.fdtd_sim_reference(p, b, r, pl, lix, liy)[0]
+    assert not torch.equal(got["pressure"], absorbing.pressure)
+
+
+def test_probe_variant_needs_the_card():
+    """fdtd_sim_tiled_probe (0-step rounds, accumulators forced to global
+    memory) has no plain version: a CPU tensor raises, and no wrapper's
+    launch count moves."""
+    p, arrays, (lix, liy) = _setup(33)
+    b, r, pl = fields_from_numpy(*arrays, device="cpu")
+    fdtd_fused.reset_launch_counts()
+    for opts in ({"dry": True}, {"global_acc": True}, {}):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fdtd_tiled.fdtd_sim_tiled_probe(p, b, r, pl, lix, liy, (16, 8),
+                                            3, **opts)
+    assert fdtd_tiled.fdtd_sim_tiled.launches == 0
