@@ -2,6 +2,15 @@
 """Bring-up smoke run of planeverb_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards     # the sharded engine across the cards
+
+With ``--cards`` (a host of two or more cards) it runs only the sharded
+engine on meshes of distinct cards, the one path that exists only across
+cards: the ghost buffers filled across cards after each round and the
+overlap split's frame copies on side streams. The headline (B5) and the
+126 m world (B6) on a 2x2 mesh (four cards; 2x1 on two) and a 4x1 (or
+2x1) split, every output held to B1 + B2 / B3 + B4 on the first card,
+bit for bit, with launch counts and times; then the last line as below.
 
 Builds the CUDA kernels from ``planeverb_tpu_torch/csrc`` and runs, one
 line per phase:
@@ -40,22 +49,27 @@ line per phase:
  10. the route's crossover: B1 + B2 against B3 + B4 at 192^2, 261^2,
      459^2 and 964^2, the measurement ``fdtd_fused.TILED_MIN_CELLS`` rests
      on;
- 11. B5 ``sharded_round`` (the sharded engine's rounds):
+ 11. B5 ``sharded_round`` (the sharded engine's rounds, one cooperative
+     launch per device and round over every shard it holds):
      ``simulate_moments_sharded`` at the headline on 2x2, 4x1 and 1x1 meshes
-     of the one card (halo 16: 96^2 shards and 75 rounds on 2x2), all nine
-     outputs held to B1 + B2 and to the plain sharded path on the card, the
-     pass timed against B1 + B2 and the 2x2 simulation against its plain
-     version;
+     of the one card (halo 16: 96^2 shards and 75 rounds on 2x2, so 75
+     launches a pass), all nine outputs held to B1 + B2 and to the plain
+     sharded path on the card, the pass timed against B1 + B2 and the 2x2
+     simulation against its plain version, with its host enqueue and the
+     card's launches; on 2x2 also the forced slab path (every neighbour
+     read through a ghost buffer, the path of neighbours on other cards),
+     bit-equal to B1 + B2 and timed against the direct reads;
  12. B6 ``banded_round``: the 126 m world on a 2x2 mesh (482^2 shards, routed
-     to B6), held to B3 + B4 and to the plain sharded path, timed against
-     its plain version; then B6 forced (``band_rows=16``) against B5 on the
-     headline's 96^2 shards, the crossover the B5/B6 routing rests on;
+     to B6, 126 launches a pass), held to B3 + B4 and to the plain sharded
+     path, timed against its plain version and B3 (host enqueue too); then
+     B6 forced (``band_rows=16``) against B5 on the headline's 96^2 shards
+     (the same kernel now, counted as B6), bit-equal;
  13. the sharded engine's main path: ``Context(mesh=grid_mesh(["cuda:0"] *
      4, (2, 2)))`` at the headline, grids publish, five ``step()`` calls,
      its grids equal to the single-device Context's; then the 126 m world
      on the same mesh, cells publish, three steps, its emitter rows equal to
-     phase 9's; launch counts (set to 0 just before each part), step times
-     and peak device memory;
+     phase 9's; launch counts (set to 0 just before each part: one round
+     launch per round), step times and peak device memory;
  14. B1/B2's batched mode: ``fdtd_sim_batch`` and ``rt60_moments_batch``
      at the headline with four listeners (the headline's and the three
      emitter positions), held to their plain versions and to four
@@ -73,16 +87,19 @@ line per phase:
      ``Context(precision="bf16")`` at the headline against the float32
      Context at the bf16 parameter bounds;
  17. the overlap split of the sharded rounds (``overlap=True``: a frame
-     launch, the frames' exchange, an interior launch a shard and round),
-     on 1D meshes of the one card: B5 at the headline on 4x1 and 2x1 and
-     B6 on the 126 m world's 4x1, all nine outputs bit-equal to the plain
-     rounds' kernels, to B1 + B2 / B3 + B4 and to the plain split, timed
-     against the plain rounds (CUDA events and host enqueue), the 126 m
-     pass's peak device memory under 1.25 recordings (the rows are written
-     in place); then the main path ``Context(mesh=4x1)``, which takes the
-     split: the headline with one and two views (grids equal the
-     single-device Context's) and the 126 m world with cells publish (rows
-     equal phase 9's), launch counts set to 0 before each part.
+     launch over every shard's two frames, the frames' exchange, an
+     interior launch over every shard's interior, per round), on 1D meshes
+     of the one card: B5 at the headline on 4x1 and 2x1 and B6 on the
+     126 m world's 4x1, all nine outputs bit-equal to the plain rounds'
+     kernels, to B1 + B2 / B3 + B4 and to the plain split, the 4x1 frames
+     also through ghost buffers (the forced slab path), timed against the
+     plain rounds (CUDA events and host enqueue), the 126 m pass's peak
+     device memory under 1.25 recordings (the rows are written in place);
+     then the main path ``Context(mesh=4x1)``, which takes the split: the
+     headline with one and two views (grids equal the single-device
+     Context's) and the 126 m world with cells publish (rows equal phase
+     9's), launch counts (two round launches a round) set to 0 before each
+     part.
 
 Every main path's step is followed by one more with the card's launches of
 each kernel counted (``kernels.device_launches``, zeroed just before it).
@@ -259,6 +276,30 @@ def _cuda_ms(fn, reps):
     return statistics.median(_once(fn)[0] for _ in range(reps))
 
 
+def _kernel_ms(fn, name):
+    """(device ms, launches) of the kernels whose name holds ``name`` in one
+    call of fn, from a torch.profiler trace of the card (after a warm-up
+    call), and the call's wall ms; (None, 0, wall) where the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            us += getattr(ev, "device_time_total", 0.0)
+            n += ev.count
+    return (us / 1e3 if us else None), n, wall
+
+
 def _stages(analyzer, q, res, mom, efree, lx, lz, directions, reps=5):
     """Medians of (CUDA-event ms, host wall ms) of parameter assembly (and
     DOA when ``directions``) on one pass's moments: the step's stage after
@@ -396,6 +437,93 @@ def _large_inputs(pv, voxelize, gaussian_pulse, size, dev):
     return p, beta, refl, pulse, lix, liy
 
 
+def _across_cards(pv, kernels, dev, card) -> None:
+    """``--cards``: the sharded engine on meshes of distinct cards, held to
+    the single-card kernels bit for bit."""
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled, voxelize
+    from planeverb_tpu_torch.parallel import solver_fused
+
+    n = torch.cuda.device_count()
+    _require(n >= 2, f"--cards needs two or more cards, found {n}")
+    cards = [f"cuda:{i}" for i in range(n)]
+    square = (2, 2) if n >= 4 else (2, 1)
+    row = (4, 1) if n >= 4 else (2, 1)
+    label = f"{n} x {card}"
+    # HugeRoom at 750 Hz, the listener at the center: the headline and the
+    # 126 m world
+    for size, single_fn in ((HEADLINE["size"],
+                             fdtd_fused.simulate_moments_fused),
+                            (XL, fdtd_tiled.simulate_moments_tiled)):
+        q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
+                                              size, dev)
+        res, mom = single_fn(q, qb, qr, qp, qx, qy)
+        single = {**res._asdict(), **mom._asdict()}
+        del res, mom
+        for shape, overlap in ((square, False), (row, True)):
+            m = shape[0] * shape[1]
+            mesh = parallel.grid_mesh(cards[:m], shape)
+            nx_pad, ny_pad = parallel.pad_to_mesh(q.nx, q.ny, mesh)
+            pad = (0, ny_pad - q.ny, 0, nx_pad - q.nx)
+            margs = (q, torch.nn.functional.pad(qb, pad),
+                     torch.nn.functional.pad(qr, pad), qp, qx, qy, mesh,
+                     nx_pad, ny_pad)
+            fdtd_fused.reset_launch_counts()
+            for d in range(m):
+                torch.cuda.synchronize(d)
+            kernels.device_launches(reset=True)
+            res, mom = parallel.simulate_moments_sharded(
+                *margs, halo=SHARD_HALO, overlap=overlap)
+            for d in range(m):
+                torch.cuda.synchronize(d)
+            launched = {k: v for k, v in
+                        kernels.device_launches(reset=True).items() if v}
+            wrapper = (solver_fused.sharded_round.launches
+                       + solver_fused.banded_round.launches)
+            rounds = -(-q.response_length // SHARD_HALO)
+            per_round = 2 if overlap else 1
+            _require(wrapper == rounds * per_round * m,
+                     f"{shape} overlap {overlap}: {wrapper} round launches")
+            got = {k: v[..., :q.nx, :q.ny]
+                   for k, v in res.assemble(dev)._asdict().items()}
+            got.update({k: v[:q.nx, :q.ny]
+                        for k, v in mom.assemble(dev)._asdict().items()})
+            del res, mom
+            bits = all(torch.equal(got[k], single[k]) for k in single)
+            errs = {k: _rel(got[k], single[k])[1] for k in single
+                    if k != "onset"}
+            _require(bits, f"{size:g} m on {shape} (overlap {overlap}) "
+                           f"differs from one card: {errs}")
+            del got
+
+            def run():
+                parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO,
+                                                overlap=overlap)
+                for d in range(m):
+                    torch.cuda.synchronize(d)
+
+            run()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"cards {q.nx}x{q.ny}x{q.response_length} on a "
+                  f"{shape[0]}x{shape[1]} mesh of {m} cards"
+                  f"{' (the split)' if overlap else ''}, halo {SHARD_HALO}: "
+                  f"device launches {launched} ({rounds * per_round} a "
+                  f"card), all nine outputs bit-equal to one card's "
+                  f"{'B1 + B2' if size == HEADLINE['size'] else 'B3 + B4'} "
+                  f"{bits}; simulation {statistics.median(walls):.3f} ms "
+                  f"(host wall to the last card's end, median of 3; "
+                  f"{label})", flush=True)
+        del single
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "planeverb_tpu_torch")):
@@ -429,6 +557,13 @@ def main() -> int:
     print(f"phase 1 device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {nvcc[-1]}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if "--cards" in sys.argv[1:]:
+        kernels.build(force=True)
+        _across_cards(pv, kernels, torch.device("cuda", 0), card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -707,7 +842,7 @@ def main() -> int:
                 lambda: fdtd_tiled.fdtd_sim_tiled_reference(
                     q, qb, qr, qp, qx, qy))[0]
         # the accumulators in global memory must give the same bits
-        tile = fdtd_tiled.pick_tile(q.nx, q.ny, fdtd_tiled.HALO, n_sm)
+        tile = fdtd_tiled.pick_tile([(q.nx, q.ny)], fdtd_tiled.HALO, n_sm)
 
         def b3_global():
             return fdtd_tiled.fdtd_sim_tiled_probe(
@@ -948,6 +1083,28 @@ def main() -> int:
                      f"{what} {name}: rel {errs[name][0]} > {bound}")
         return errs, all(torch.equal(got[k], ref[k]) for k in got)
 
+    def busy(measured):
+        ms, n, wall = measured
+        if ms is None:
+            return (f"not measured (the profiler saw no device time; pass "
+                    f"{wall:.3f} ms)")
+        return (f"{ms:.3f} ms in {n} launches of a {wall:.3f} ms pass "
+                f"(torch.profiler; share with no round kernel running "
+                f"{1 - ms / wall:.3f})")
+
+    def sharded_impl(margs, slabs=False, overlap=False, moments=True):
+        """A sharded pass through the engine's own entry, with the private
+        option that reads every neighbour through a ghost buffer."""
+        return solver_fused._simulate_impl(
+            *margs, SHARD_HALO, None, overlap, reference=False,
+            with_moments=moments, slabs=slabs)
+
+    def region_block(bx, by, mesh_shape, banded=False):
+        """A plain round's region: the shard's extended block."""
+        kx = SHARD_HALO if banded or mesh_shape[0] > 1 else 0
+        ky = SHARD_HALO if banded or mesh_shape[1] > 1 else 0
+        return bx + 2 * kx, by + 2 * ky
+
     def sharded_args(q, qb, qr, qp, mesh_shape):
         mesh = parallel.grid_mesh(["cuda:0"] * (mesh_shape[0] * mesh_shape[1]),
                                   mesh_shape)
@@ -976,7 +1133,8 @@ def main() -> int:
                   "rt60_moments": fdtd_fused.rt60_moments.launches}
         n_shards = mshape[0] * mshape[1]
         rounds = -(-p.response_length // SHARD_HALO)
-        _require(counts == {"sharded_round": rounds * n_shards,
+        # one launch per device and round: every shard is on cuda:0
+        _require(counts == {"sharded_round": rounds,
                             "banded_round": 0, "rt60_moments": n_shards},
                  f"B5 {mshape} launches {counts}")
         _require(all(torch.isfinite(v).all() for k, v in got.items()
@@ -1000,8 +1158,35 @@ def main() -> int:
                                                         halo=SHARD_HALO),
                 lambda: parallel.simulate_sharded_reference(
                     *margs, halo=SHARD_HALO), reps=2)
-        tile = solver_fused.pick_round_tile(
-            nx_pad // mshape[0], ny_pad // mshape[1], SHARD_HALO,
+            # the forced slab path: every neighbour read through a ghost
+            # buffer refreshed after each round (the path of neighbours on
+            # other cards), against the direct reads
+            slabs = nine(*sharded_impl(margs, slabs=True), p)
+            _, row["slab_bits"] = hold(slabs, single,
+                                       f"B5 {mshape} slab path vs B1 + B2")
+            _require(row["slab_bits"],
+                     f"B5 {mshape}: slab path not bit-equal")
+            del slabs
+            row["device"] = _device_pass(
+                kernels, lambda: parallel.simulate_sharded_fused(
+                    *margs, halo=SHARD_HALO))
+            row["busy"] = _kernel_ms(lambda: parallel.simulate_sharded_fused(
+                *margs, halo=SHARD_HALO), "round_kernel")
+            _require(row["device"] == {"round_kernel B5": rounds},
+                     f"B5 {mshape} device launches {row['device']}")
+            row["slab_ms"], row["direct_ms"] = _time_pair(
+                lambda: sharded_impl(margs, slabs=True, moments=False),
+                lambda: parallel.simulate_sharded_fused(*margs,
+                                                        halo=SHARD_HALO),
+                reps=3)
+            row["enq"], row["slab_enq"] = _enqueue_pair(
+                lambda: parallel.simulate_sharded_fused(*margs,
+                                                        halo=SHARD_HALO),
+                lambda: sharded_impl(margs, slabs=True, moments=False),
+                reps=3)
+        tile = fdtd_tiled.pick_tile(
+            [region_block(nx_pad // mshape[0], ny_pad // mshape[1], mshape)]
+            * (mshape[0] * mshape[1]), fdtd_tiled.HALO,
             torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"phase 11 B5 sharded_round {mshape[0]}x{mshape[1]} mesh of "
               f"cuda:0 {shape} (shards {nx_pad // mshape[0]}x"
@@ -1012,8 +1197,14 @@ def main() -> int:
               + f", bit-equal {plain_bits5} (onset equal); sharded pass "
               f"(rounds + exchanges + B2) {row['pass_ms']:.3f} ms vs B1 + B2 "
               f"{row['b1b2_ms']:.3f} ms"
-              + (f"; simulation {row['ms']:.3f} ms vs plain rounds "
-                 f"{row['plain_ms']:.3f} ms" if "ms" in row else "")
+              + (f"; simulation {row['ms']:.3f} ms vs its plain version "
+                 f"{row['plain_ms']:.3f} ms, host enqueue "
+                 f"{row['enq']:.3f} ms; device launches {row['device']}; "
+                 f"round kernels busy {busy(row['busy'])}; "
+                 f"forced slab path bit-equal {row['slab_bits']}, "
+                 f"{row['slab_ms']:.3f} ms vs direct {row['direct_ms']:.3f}"
+                 f" ms, host enqueue {row['slab_enq']:.3f} ms"
+                 if "ms" in row else "")
               + f" ({label})", flush=True)
         b5[mshape] = row
     torch.cuda.empty_cache()
@@ -1034,7 +1225,7 @@ def main() -> int:
               "banded_round": solver_fused.banded_round.launches,
               "rt60_moments_tiled": fdtd_tiled.rt60_moments_tiled.launches}
     rounds = -(-q.response_length // SHARD_HALO)
-    _require(counts == {"sharded_round": 0, "banded_round": 4 * rounds,
+    _require(counts == {"sharded_round": 0, "banded_round": rounds,
                         "rt60_moments_tiled": 4}, f"B6 launches {counts}")
     _require(all(torch.isfinite(v).all() for k, v in got.items()
                  if k != "onset"), "B6: not finite")
@@ -1056,9 +1247,15 @@ def main() -> int:
         *margs, halo=SHARD_HALO))[0]
     b6["b3_ms"] = _cuda_ms(lambda: fdtd_tiled.fdtd_sim_tiled(
         q, qb, qr, qp, qx, qy), 3)
+    b6["busy"] = _kernel_ms(lambda: parallel.simulate_sharded_fused(
+        *margs, halo=SHARD_HALO), "round_kernel")
+    b6["enq"], b6["b3_enq"] = _enqueue_pair(
+        lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
+        lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy), reps=3)
     torch.cuda.empty_cache()
-    tile = solver_fused.pick_round_tile(
-        nx_pad // 2, ny_pad // 2, SHARD_HALO,
+    tile = fdtd_tiled.pick_tile(
+        [region_block(nx_pad // 2, ny_pad // 2, (2, 2), banded=True)] * 4,
+        fdtd_tiled.HALO,
         torch.cuda.get_device_properties(0).multi_processor_count)
     print(f"phase 12 B6 banded_round {qshape} on a 2x2 mesh of cuda:0 "
           f"(shards {nx_pad // 2}x{ny_pad // 2}, halo {SHARD_HALO}, tile "
@@ -1066,8 +1263,11 @@ def main() -> int:
           f"vs plain max rel "
           + ", ".join(f"{k} {v[0]:.3g}" for k, v in b6_vs_plain.items())
           + f", bit-equal {b6_plain_bits} (onset equal); simulation "
-          f"{b6['ms']:.3f} ms vs plain rounds {b6['plain_ms']:.3f} ms (one "
-          f"pass) and B3 {b6['b3_ms']:.3f} ms ({label})", flush=True)
+          f"{b6['ms']:.3f} ms vs its plain version {b6['plain_ms']:.3f} ms "
+          f"(one pass) and B3 {b6['b3_ms']:.3f} ms; host enqueue "
+          f"{b6['enq']:.3f} ms vs B3 {b6['b3_enq']:.3f} ms; round kernels "
+          f"busy {busy(b6['busy'])} ({label})",
+          flush=True)
     # B6 forced against B5 on the headline's 96^2 shards
     fields, (mesh, nx_pad, ny_pad) = sharded_args(p, beta, refl, pulse,
                                                   (2, 2))
@@ -1084,9 +1284,9 @@ def main() -> int:
                                                 band_rows=FORCED_BAND),
         lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
         reps=5)
-    print(f"phase 12 B5/B6 crossover at the headline's {nx_pad // 2}x"
-          f"{ny_pad // 2} shards (2x2, halo {SHARD_HALO}): B6 forced (band_rows={FORCED_BAND}: "
-          f"{FORCED_BAND}x{FORCED_BAND} tiles) {b6_96:.3f} ms, B5 "
+    print(f"phase 12 B6 forced against B5 at the headline's {nx_pad // 2}x"
+          f"{ny_pad // 2} shards (2x2, halo {SHARD_HALO}; one kernel, counted "
+          f"by mode): B6 (band_rows={FORCED_BAND}) {b6_96:.3f} ms, B5 "
           f"{b5_96:.3f} ms, ratio {b6_96 / b5_96:.3f}, bit-equal {same} "
           f"({label}, medians of 5 in turns)", flush=True)
     print(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
@@ -1108,11 +1308,11 @@ def main() -> int:
         ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
     rounds = -(-p.response_length // mctx._halo)
     _require(m_launches == {"fdtd_sim": 1, "rt60_moments": 4 * STEPS,
-                            "sharded_round": 4 * rounds * STEPS,
+                            "sharded_round": rounds * STEPS,
                             "banded_round": 0, "fdtd_sim_tiled": 0,
                             "rt60_moments_tiled": 0}, m_launches)
     m_step = _device_pass(kernels, mctx.step)
-    _require(m_step == {"round_kernel<false>": 4 * rounds,
+    _require(m_step == {"round_kernel B5": rounds,
                         "rt60_moments_kernel": 4},
              f"2x2 mesh step device launches {m_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
@@ -1157,13 +1357,13 @@ def main() -> int:
     xrounds = -(-xp.response_length // xm._halo)
     _require(xm_launches == {"fdtd_sim": 1, "rt60_moments": 0,
                              "sharded_round": 0,
-                             "banded_round": 4 * xrounds * XL_STEPS,
+                             "banded_round": xrounds * XL_STEPS,
                              "fdtd_sim_tiled": 0,
                              "rt60_moments_tiled": 4 * XL_STEPS},
              xm_launches)
     xm_peak = torch.cuda.max_memory_allocated() / 1e9
     xm_step = _device_pass(kernels, xm.step)
-    _require(xm_step == {"round_kernel<true>": 4 * xrounds,
+    _require(xm_step == {"round_kernel B6": xrounds,
                          "rt60_moments_tiled_kernel": 4},
              f"126 m 2x2 mesh step device launches {xm_step}")
     xm_cells = xm._published["cells"]
@@ -1383,7 +1583,7 @@ def main() -> int:
         "fdtd_sim": 1, "fdtd_sim_batch": 0,
         "rt60_moments": 4 * MESH_VIEWS * STEPS, "rt60_moments_batch": 0,
         "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0,
-        "sharded_round": 4 * mrounds * MESH_VIEWS * STEPS,
+        "sharded_round": mrounds * MESH_VIEWS * STEPS,
         "banded_round": 0}, mv_launches)
     for k in mv._published.keys() - {"listener", "listeners"}:
         np.testing.assert_array_equal(mv._published[k], vg[k][:MESH_VIEWS],
@@ -1559,7 +1759,7 @@ def main() -> int:
             *margs, halo=SHARD_HALO, overlap=True), p)
         torch.cuda.synchronize()
         counts = counts_of(*split_fns)
-        _require(counts == {"sharded_round": rounds * n_shards * 2,
+        _require(counts == {"sharded_round": rounds * 2,
                             "banded_round": 0, "rt60_moments": n_shards,
                             "rt60_moments_tiled": 0},
                  f"B5 split {mshape} launches {counts}")
@@ -1574,8 +1774,15 @@ def main() -> int:
             f"B5 split {mshape} vs plain split")
         _require(rounds_bits and b1_bits and plain_bits,
                  f"B5 split {mshape} not bit-equal")
-        del got
         row = {"vs_plain": vs_plain}
+        if mshape == OVERLAP_MESHES[0]:
+            # the frames through ghost buffers (the exchange across cards)
+            _, row["slab_bits"] = hold(
+                nine(*sharded_impl(margs, slabs=True, overlap=True), p), got,
+                f"B5 split {mshape} slab path vs direct")
+            _require(row["slab_bits"], f"B5 split {mshape}: slab path not "
+                                       f"bit-equal")
+        del got
         row["pass_ms"], row["rounds_ms"] = _time_pair(
             lambda: parallel.simulate_moments_sharded(
                 *margs, halo=SHARD_HALO, overlap=True),
@@ -1604,7 +1811,8 @@ def main() -> int:
               f"turns), host enqueue {row['pass_enq']:.3f} vs "
               f"{row['rounds_enq']:.3f} ms"
               + (f"; simulation {row['ms']:.3f} ms vs plain split "
-                 f"{row['plain_ms']:.3f} ms" if "ms" in row else "")
+                 f"{row['plain_ms']:.3f} ms; forced slab path bit-equal "
+                 f"{row['slab_bits']}" if "ms" in row else "")
               + f" ({label})", flush=True)
         b5o[mshape] = row
     torch.cuda.empty_cache()
@@ -1629,7 +1837,7 @@ def main() -> int:
     split_peak = torch.cuda.max_memory_allocated()
     counts = counts_of(*split_fns)
     _require(counts == {"sharded_round": 0,
-                        "banded_round": xrounds * 4 * 2, "rt60_moments": 0,
+                        "banded_round": xrounds * 2, "rt60_moments": 0,
                         "rt60_moments_tiled": 4},
              f"B6 split launches {counts}")
     rec_bytes = q.nx * q.ny * q.response_length * 4
@@ -1697,11 +1905,11 @@ def main() -> int:
     sev, swall = zip(*(_once(sctx.step) for _ in range(STEPS)))
     s_launches = counts_of(*ctx_fns)
     _require(s_launches == {"fdtd_sim": 1, "fdtd_sim_batch": 0,
-                            "sharded_round": 4 * rounds * 2 * STEPS,
+                            "sharded_round": rounds * 2 * STEPS,
                             "banded_round": 0, "rt60_moments": 4 * STEPS,
                             "rt60_moments_tiled": 0}, s_launches)
     s_step = _device_pass(kernels, sctx.step)
-    _require(s_step == {"round_kernel<false>": 4 * rounds * 2,
+    _require(s_step == {"round_kernel B5": rounds * 2,
                         "rt60_moments_kernel": 4},
              f"4x1 split step device launches {s_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
@@ -1723,7 +1931,7 @@ def main() -> int:
     sv_launches = counts_of(*ctx_fns)
     _require(sv_launches == {
         "fdtd_sim": 1, "fdtd_sim_batch": 0,
-        "sharded_round": 4 * rounds * 2 * MESH_VIEWS * 2, "banded_round": 0,
+        "sharded_round": rounds * 2 * MESH_VIEWS * 2, "banded_round": 0,
         "rt60_moments": 4 * MESH_VIEWS * 2, "rt60_moments_tiled": 0},
         sv_launches)
     for k in sv._published.keys() - {"listener", "listeners"}:
@@ -1732,8 +1940,9 @@ def main() -> int:
     del sv
     print(f"phase 17 main path Context(mesh=4x1 of cuda:0, halo "
           f"{SHARD_HALO}: the split) {shape}: launches {s_launches} "
-          f"(calibration + {STEPS} steps: 2 round launches a shard and "
-          f"round; device launches of a step {s_step}); step median {statistics.median(sev):.3f} ms (CUDA "
+          f"(calibration + {STEPS} steps: 2 round launches a round; "
+          f"device launches of a step {s_step}); step median "
+          f"{statistics.median(sev):.3f} ms (CUDA "
           f"events), {statistics.median(swall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in sev)
           + f" ms; grids and impulse response equal the single-device "
@@ -1753,11 +1962,11 @@ def main() -> int:
     xs_launches = counts_of(*ctx_fns)
     _require(xs_launches == {
         "fdtd_sim": 1, "fdtd_sim_batch": 0, "sharded_round": 0,
-        "banded_round": 4 * xrounds * 2 * XL_SPLIT_STEPS,
+        "banded_round": xrounds * 2 * XL_SPLIT_STEPS,
         "rt60_moments": 0, "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
         xs_launches)
     xs_step = _device_pass(kernels, xs.step)
-    _require(xs_step == {"round_kernel<true>": 4 * xrounds * 2,
+    _require(xs_step == {"round_kernel B6": xrounds * 2,
                          "rt60_moments_tiled_kernel": 4},
              f"126 m 4x1 split step device launches {xs_step}")
     xs_cells = xs._published["cells"]
@@ -1822,11 +2031,11 @@ def main() -> int:
             "parallel/solver_pallas.py:76", b5_launches,
             err_of(*(r["vs_plain"] for r in b5.values())),
             b5[SHARDED_MESHES[0]]["ms"], b5[SHARDED_MESHES[0]]["plain_ms"],
-            _sim_bound(p), m_step["round_kernel<false>"]),
+            _sim_bound(p), m_step["round_kernel B5"]),
         row("banded_round", "solver_rounds.cu",
             "parallel/solver_pallas.py:221", b6_launches, err_of(b6_vs_plain),
             b6["ms"], b6["plain_ms"], _sim_bound(xp),
-            xm_step["round_kernel<true>"]),
+            xm_step["round_kernel B6"]),
         row("fdtd_sim_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             v_launches["fdtd_sim_batch"], err_of(b1b), b1b_ms, b1b_plain_ms,
             _sim_bound(p, nv), v_step["fdtd_cluster_kernel"]),
@@ -1844,11 +2053,11 @@ def main() -> int:
             "parallel/solver_pallas.py:550", b5o_launches,
             err_of(*(r["vs_plain"] for r in b5o.values())),
             b5o[OVERLAP_MESHES[0]]["ms"], b5o[OVERLAP_MESHES[0]]["plain_ms"],
-            _sim_bound(p), s_step["round_kernel<false>"]),
+            _sim_bound(p), s_step["round_kernel B5"]),
         row("B6 overlap", "solver_rounds.cu",
             "parallel/solver_pallas.py:798", b6o_launches,
             err_of(b6o_vs_plain), b6o["ms"], b6o["plain_ms"],
-            _sim_bound(xp), xs_step["round_kernel<true>"]),
+            _sim_bound(xp), xs_step["round_kernel B6"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

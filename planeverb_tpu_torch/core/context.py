@@ -23,15 +23,16 @@ runs the kernels' plain versions.
 
 With ``mesh=`` the step runs the sharded engine
 (``parallel/solver_fused.py::pipeline_sharded``): the fields are padded to
-the mesh and sharded over it, and each shard advances in rounds of
-``halo`` steps between ghost exchanges, one B5 (``sharded_round``) or, for
-shards above ``TILED_MIN_CELLS`` cells, one B6 (``banded_round``) launch
-per shard and round (``csrc/solver_rounds.cu``); its moments come from B2
-or B4 on its own recording. On a 1D ("x", N) mesh the rounds take the
-overlap split when the shards hold it (``_overlap``): per shard and round a
-frame launch, the frames' exchange, and an interior launch that does not
-wait for it. The published grids equal the single-device step's bit for
-bit.
+the mesh and sharded over it, and the shards advance in rounds of
+``halo`` steps, one B5 (``sharded_round``) or, for shards above
+``TILED_MIN_CELLS`` cells, one B6 (``banded_round``) launch per device and
+round over every shard it holds, reading the ghosts on the device
+(``csrc/solver_rounds.cu``); each shard's moments come from B2 or B4 on
+its own recording. On a 1D ("x", N) mesh the rounds take the overlap
+split when the shards hold it (``_overlap``): per device and round a frame
+launch, the frames' exchange across devices, and an interior launch that
+does not wait for it. The published grids equal the single-device step's
+bit for bit.
 
 Publish modes:
 

@@ -24,14 +24,15 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DEVICE_KERNELS", "nvcc", "build",
-           "library", "check", "device_launches"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "DEVICE_KERNELS", "RoundSource",
+           "RoundRegion", "nvcc", "build", "library", "check",
+           "device_launches"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu", "solver_rounds.cu")
 # included by the sources: part of the build's tag
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "windows.cuh")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # -fmad=false: no multiply-add contraction, so every op rounds once, as in
@@ -64,24 +65,40 @@ _SIGNATURES = {
     # rec, onset, s0, s1, nx, ny, T, chunk, dry_n + 1, end, log10_scale,
     # stream
     "pv_rt60_moments_tiled": [_P] * 4 + [_I] * 4 + [_F] * 3 + [_P],
-    # 8 folded planes, extended p/vx/vy, pulse, rec, acc, state_out, rows,
-    # by, kx, ky, nwin, bx, row0, out_stride, t0, nsteps, halo, tile_x,
-    # tile_y, courant, thr, src_dir_n, dry_n, wet_n, stream
-    "pv_sharded_round": [_P] * 6 + [_I] * 13 + [_F] * 5 + [_P],
-    # beta/Y planes, extended p/vx/vy, pulse, rec, acc, state_out, rows,
-    # by, k, nwin, bx, row0, out_stride, t0, nsteps, tile_x, tile_y, gi0,
-    # gj0, lix, liy, gx, gy, absorbing, courant, thr, src_dir_n, dry_n,
-    # wet_n, stream
-    "pv_banded_round": [_P] * 6 + [_I] * 18 + [_F] * 5 + [_P],
+    # region table (device), pulse, barrier words, n_regions, tiles, tile_x,
+    # tile_y, k, t0, nsteps, lix, liy, gx, gy, absorbing, banded, courant,
+    # thr, src_dir_n, dry_n, wet_n, stream
+    "pv_device_round": [_P] * 3 + [_I] * 13 + [_F] * 5 + [_P],
+    # -> sizeof(Region) in csrc/solver_rounds.cu
+    "pv_round_region_bytes": [],
     # out[n], n, reset -> the number of kernels counted
     "pv_device_launches": [_P, _I, _I],
 }
 
-# The library's kernels in the order of csrc/common.cuh DeviceKernel.
+# The library's kernels in the order of csrc/common.cuh DeviceKernel. The
+# sharded rounds' one kernel (csrc/solver_rounds.cu round_kernel) is
+# counted by the mode its launcher ran it in: B5 or B6.
 DEVICE_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel",
                   "rt60_moments_kernel", "fdtd_tiled_kernel",
-                  "rt60_moments_tiled_kernel", "round_kernel<false>",
-                  "round_kernel<true>")
+                  "rt60_moments_tiled_kernel", "round_kernel B5",
+                  "round_kernel B6")
+
+
+class RoundSource(ctypes.Structure):
+    """csrc/solver_rounds.cu ``Source``: one of the 3 x 3 states a round
+    region reads at its start (a null ``p`` reads zeros)."""
+    _fields_ = [("p", _P), ("plane", _I), ("row", _I), ("i0", _I),
+                ("j0", _I)]
+
+
+class RoundRegion(ctypes.Structure):
+    """csrc/solver_rounds.cu ``Region``: one region of a round launch."""
+    _fields_ = [("src", RoundSource * 9), ("statics", _P), ("scratch", _P),
+                ("rec", _P), ("acc", _P), ("out", _P),
+                ("splane", ctypes.c_longlong), ("ex", _I), ("ey", _I),
+                ("kx", _I), ("ky", _I), ("bx", _I), ("by", _I),
+                ("orow", _I), ("rows", _I), ("oi", _I), ("oj", _I),
+                ("tile0", _I), ("tiles_y", _I)]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -170,6 +187,10 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.pv_error_string.argtypes = [_I]
             lib.pv_error_string.restype = ctypes.c_char_p
+            if lib.pv_round_region_bytes() != ctypes.sizeof(RoundRegion):
+                raise RuntimeError(
+                    f"RoundRegion is {ctypes.sizeof(RoundRegion)} bytes, "
+                    f"the library's Region {lib.pv_round_region_bytes()}")
             _LIB = lib
         return _LIB
 

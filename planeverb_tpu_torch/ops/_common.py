@@ -70,6 +70,21 @@ def counted(fn):
     return fn
 
 
+_BARRIERS: dict = {}
+
+
+def barrier_words(device, kernel: str) -> torch.Tensor:
+    """The two grid-barrier words a cooperative kernel (``kernel``) uses on
+    ``device``: zeroed once, at first use, and kept. Every barrier leaves
+    them at rest (the arrival count back at 0, the generation only moving
+    on), so launch after launch reuses them with no fill; each kernel has
+    its own pair, so two cooperative kernels never share one."""
+    key = (torch.device(device), kernel)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
+
+
 def reset_launch_counts() -> None:
     """Zero the launch counter of every kernel wrapper imported so far."""
     for fn in _COUNTED:

@@ -34,8 +34,9 @@ import torch.nn.functional as F
 
 from planeverb_tpu_torch import kernels
 from planeverb_tpu_torch.config import BoundaryType, GridParams
-from planeverb_tpu_torch.ops._common import (check_field, coefficients,
-                                             counted, fresh_acc,
+from planeverb_tpu_torch.ops._common import (barrier_words, check_field,
+                                             coefficients, counted,
+                                             fresh_acc,
                                              moment_scalars, moment_step,
                                              moments_shape, on_card,
                                              stream_step, window_scalars)
@@ -78,14 +79,16 @@ def block_shape(tile_x: int, tile_y: int, k: int) -> tuple[int, int]:
     return lanes, -(-(tile_x + 2 * k) // RUN)
 
 
-def pick_tile(nx: int, ny: int, halo: int, n_sm: int) -> tuple[int, int]:
-    """The tile of :data:`TILES` with the least modelled round time on a
-    card with ``n_sm`` SMs: the blocks the busiest SM steps one after
-    another times the cells of a window. Ties go to the earlier tile."""
+def pick_tile(blocks, halo: int, n_sm: int) -> tuple[int, int]:
+    """The tile of :data:`TILES` with the least modelled round time for one
+    launch over the given (rows, cols) blocks (B3: the field; a sharded
+    round: its regions' extended blocks) on a card with ``n_sm`` SMs: the
+    windows the busiest SM steps one after another times the cells of a
+    window. Ties go to the earlier tile."""
     def cost(tile):
         tx, ty = tile
-        blocks = -(-nx // tx) * -(-ny // ty)
-        return -(-blocks // n_sm) * (tx + 2 * halo) * (ty + 2 * halo)
+        n = sum(-(-nx // tx) * -(-ny // ty) for nx, ny in blocks)
+        return -(-n // n_sm) * (tx + 2 * halo) * (ty + 2 * halo)
 
     return min(TILES, key=cost)
 
@@ -196,7 +199,7 @@ def _launch_fdtd_sim_tiled(params: GridParams, beta, refl, pulse,
     rec = torch.empty((T, nx, ny), dtype=torch.float32, device=dev)
     acc = torch.empty((6, nx, ny), dtype=torch.float32, device=dev)
     state = torch.empty((2, 3, nx, ny), dtype=torch.float32, device=dev)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    bar = barrier_words(dev, "fdtd_tiled")
     absorbing = params.boundary_type == BoundaryType.ABSORBING
     lib = kernels.library()
     args = (*(f.data_ptr() for f in fields), pulse.data_ptr(),
@@ -242,7 +245,7 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
         n_sm = torch.cuda.get_device_properties(
             beta.device).multi_processor_count
         if tile is None:
-            tx, ty = pick_tile(nx, ny, k, n_sm)
+            tx, ty = pick_tile([(nx, ny)], k, n_sm)
         out = _launch_fdtd_sim_tiled(params, beta, refl, pulse, lix, liy,
                                      tx, ty, k)
         fdtd_sim_tiled.launches += 1

@@ -3,9 +3,10 @@
 Counterpart of ``planeverb_tpu/parallel/``, single-controller: one process
 drives a 2D ("x", "y") mesh of torch devices, on which a device may repeat
 (``grid_mesh(["cuda:0"] * 4, (2, 2))`` runs a 2x2 mesh on one card). The
-field is sharded over the mesh; shards advance in rounds of ``halo`` steps
-between ghost exchanges, each round one hand-written kernel per shard (B5
-``sharded_round``, B6 ``banded_round``, ``csrc/solver_rounds.cu``).
+field is sharded over the mesh; shards advance in rounds of ``halo`` steps,
+each round one launch of a hand-written kernel per device over every shard
+it holds, with the ghosts read on the device (B5 ``sharded_round``, B6
+``banded_round``, ``csrc/solver_rounds.cu``).
 Multi-process meshes (``multihost.py``) and the scaling harness are not
 ported yet (ROADMAP A14).
 """

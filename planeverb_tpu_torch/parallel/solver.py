@@ -9,22 +9,24 @@ one process holds every block and a neighbour's slab crosses devices with
 ``.to(device)`` (a no-op when both shards share a device).
 
 The exchange never writes a block it was given; on an axis with ghosts it
-returns new tensors. The rounds (``parallel/solver_fused.py``) build every
-shard's extended blocks from the previous round's outputs before any
-kernel of the round runs, and write each round's state into new tensors.
+returns new tensors. It builds every shard's extended beta and Y once a
+simulation; the rounds (``parallel/solver_fused.py``) read each round's
+ghosts on the device instead, in place from a neighbour on the same device
+and from a ghost buffer where the neighbour sits on another one. After a
+round the rounds' loop copies the slab each ghost buffer holds from its sender.
 
-The overlap split of the rounds exchanges only the new frames
+The overlap split of the rounds copies only the new frames
 (:func:`_exchange_frames`, after ``solver_pallas.py:667-672`` and
-``:882-887``): each shard's new bottom k rows become the next shard's top
-ghost, its new top k rows the previous shard's bottom ghost. It is enqueued
-after the round's frame launches and before its interior launches. Where
-the neighbour sits on another card the copy runs on side streams, after an
-event recorded behind the sender's frame launches, so it can run under the
-interior launches; the receiver's next frame windows wait on the copy's
-event and its interior launches do not. Where both shards share a device
-(a mesh of one card repeated, as on a one-card machine, or of ``"cpu"``)
-the ghost is a view of the neighbour's new state: nothing is copied, no
-side stream is used, and no exchange is left to hide.
+``:882-887``): each shard's new bottom k rows go to the next shard's top
+ghost buffer, its new top k rows to the previous shard's bottom one. It is
+enqueued after the round's frame launches and before its interior launches.
+Between two cards the copy runs on side streams, after events recorded
+behind both cards' frame launches, so it can run under the interior
+launches; the receiver's next frame launch waits on the copy's event and
+its interior launch does not. Shards sharing a device (a mesh of one card
+repeated, as on a one-card machine, or of ``"cpu"``) read each other's
+frames in place: nothing is copied, no side stream is used, and no exchange
+is left to hide.
 
 ``simulate_sharded`` and ``simulate_sharded_wide`` (the per-step scan
 solvers of the JAX module) are not ported yet (ROADMAP A14).
@@ -64,11 +66,10 @@ def assemble(blocks, device) -> torch.Tensor:
     return torch.cat(rows, dim=-2)
 
 
-def _from_prev(slabs, axis: str, move=torch.Tensor.to):
+def _from_prev(slabs, axis: str):
     """Each shard's slab from its previous neighbour along ``axis`` (zeros
     at the global edge and on a size-1 axis), on the receiving shard's
-    device. ``slabs`` is a block grid; so is the result. ``move(slab,
-    device)`` carries a slab to its receiver (default ``.to(device)``)."""
+    device. ``slabs`` is a block grid; so is the result."""
     mx, my = len(slabs), len(slabs[0])
 
     def take(i, j):
@@ -76,14 +77,15 @@ def _from_prev(slabs, axis: str, move=torch.Tensor.to):
         pi, pj = (i - 1, j) if axis == "x" else (i, j - 1)
         if pi < 0 or pj < 0:
             return torch.zeros_like(mine)
-        return move(slabs[pi][pj], mine.device)
+        return slabs[pi][pj].to(mine.device)
 
     return [[take(i, j) for j in range(my)] for i in range(mx)]
 
 
-def _from_next(slabs, axis: str, move=torch.Tensor.to):
+def _from_next(slabs, axis: str):
     """Each shard's slab from its next neighbour along ``axis`` (zeros at
-    the global edge and on a size-1 axis); ``move`` as :func:`_from_prev`."""
+    the global edge and on a size-1 axis), on the receiving shard's
+    device."""
     mx, my = len(slabs), len(slabs[0])
 
     def take(i, j):
@@ -91,7 +93,7 @@ def _from_next(slabs, axis: str, move=torch.Tensor.to):
         ni, nj = (i + 1, j) if axis == "x" else (i, j + 1)
         if ni >= mx or nj >= my:
             return torch.zeros_like(mine)
-        return move(slabs[ni][nj], mine.device)
+        return slabs[ni][nj].to(mine.device)
 
     return [[take(i, j) for j in range(my)] for i in range(mx)]
 
@@ -140,57 +142,61 @@ def _side_stream(device) -> "torch.cuda.Stream":
 
 
 class _FrameCopies:
-    """The cross-device copies of one frame exchange, on side streams.
+    """The copies of one frame exchange into the receivers' ghost buffers.
 
-    PyTorch runs a copy between two cards on the sender's current stream
-    and makes the receiver's current stream wait for it; with both side
-    streams current, the copy runs on the sender's side stream, after an
-    event recorded on the sender's stream behind its frame launches, and
-    ends with the receiver's side stream waiting on it. Each tensor used on
-    a stream other than the one it was allocated on is recorded there
-    (``record_stream``), so the allocator never hands its memory out while
-    a copy still reads or writes it. Same-device slabs are returned as
-    they are.
+    A copy within one device runs on its current stream, in order with the
+    launches. A copy between two cards runs on their side streams, after
+    events recorded on both cards' current streams behind their frame
+    launches (the sender's new frames are written; the receiver's frame
+    launch has read the buffer's last contents), and the receiver waits on
+    its end (:meth:`wait`) before its next frame launch. Each tensor used
+    on a side stream is recorded there (``record_stream``), so the
+    allocator never hands its memory out while a copy still reads or
+    writes it.
     """
 
     def __init__(self):
-        self._sent = {}    # sender device -> event behind its frames
+        self._ready = {}   # device -> event behind its frame launches
         self._copied = {}  # receiver device -> events of its copies
 
-    def __call__(self, slab: torch.Tensor, device) -> torch.Tensor:
-        if slab.device == device:
-            return slab
-        src = slab.device
-        if src not in self._sent:
-            sent = torch.cuda.Event()
-            sent.record(torch.cuda.current_stream(src))
-            self._sent[src] = sent
-        side_src, side_dst = _side_stream(src), _side_stream(device)
+    def _behind_frames(self, device) -> "torch.cuda.Event":
+        if device not in self._ready:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+            self._ready[device] = ready
+        return self._ready[device]
+
+    def __call__(self, slab: torch.Tensor, ghost: torch.Tensor) -> None:
+        if slab.device == ghost.device:
+            ghost.copy_(slab)
+            return
+        src, dst = slab.device, ghost.device
+        sent, free = self._behind_frames(src), self._behind_frames(dst)
+        side_src, side_dst = _side_stream(src), _side_stream(dst)
         with torch.cuda.stream(side_src), torch.cuda.stream(side_dst):
-            side_src.wait_event(self._sent[src])
-            ghost = slab.to(device, non_blocking=True)
+            side_src.wait_event(sent)
+            side_src.wait_event(free)
+            ghost.copy_(slab, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(side_dst)
         slab.record_stream(side_src)
-        ghost.record_stream(torch.cuda.current_stream(device))
-        self._copied.setdefault(device, []).append(copied)
-        return ghost
+        ghost.record_stream(side_src)
+        self._copied.setdefault(dst, []).append(copied)
 
     def wait(self, device) -> None:
         """Make ``device``'s current stream wait for the copies it
-        received (nothing to wait for where none crossed a device)."""
+        received from other cards (nothing to wait for where none crossed
+        a device)."""
         for copied in self._copied.get(device, ()):
             torch.cuda.current_stream(device).wait_event(copied)
 
 
-def _exchange_frames(states, k: int):
-    """The overlap split's exchange on a 1D ("x", N) mesh: the shards' new
-    [3, bx, by] states, in mesh order -> (top ghosts, bottom ghosts,
-    copies), each ghost [3, k, by] on its receiver's device: the previous
-    shard's new bottom k rows and the next shard's new top k rows (zeros at
-    the global edges). Call ``copies.wait(device)`` before a receiver's
-    next frame windows read its ghosts."""
+def _exchange_frames(pairs) -> _FrameCopies:
+    """The overlap split's exchange: each (slab, ghost) pair's slab, a
+    shard's new frame rows [3, k, by], copied into the ghost buffer a
+    neighbour reads in the next round's frame launch. Returns the copies;
+    call ``copies.wait(device)`` before a receiver's next frame launch."""
     copies = _FrameCopies()
-    top = _from_prev([[s[:, -k:]] for s in states], "x", copies)
-    bot = _from_next([[s[:, :k]] for s in states], "x", copies)
-    return [g for (g,) in top], [g for (g,) in bot], copies
+    for slab, ghost in pairs:
+        copies(slab, ghost)
+    return copies

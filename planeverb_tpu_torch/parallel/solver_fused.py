@@ -1,30 +1,38 @@
-"""Sharded engine: fused rounds (B5) and banded rounds (B6) between ghost
-exchanges.
+"""Sharded engine: the rounds of B5 and B6 between ghost exchanges, one
+launch per device and round.
 
 Counterpart of ``planeverb_tpu/parallel/solver_pallas.py``. The field is
 padded to the mesh (beta = 0, silent) and cut into [bx, by] shards. A pass
-runs in rounds of k = ``halo`` steps (the last round has T - t0): before
-each round every shard's state is extended by ghosts from its neighbours
-(``parallel/solver.py::_exchange_axes``), then each shard advances its
-extended block alone. With ``overlap=True`` on a 1D ("x", N) mesh, each
-round is split instead (:func:`_overlap_rounds`): a frame launch advances
-the shard's top and bottom k rows, their new rows are exchanged, and an
-interior launch that does not wait for the exchange advances the rest.
-Two kernels, each with its hand-written CUDA kernel
-(``csrc/solver_rounds.cu``) and a plain PyTorch version, both taking row
-windows for the split:
+runs in rounds of k = ``halo`` steps (the last round has T - t0): each
+round advances every shard on its ghost-extended block, whose ghosts are
+its neighbours' state at the round's start. With ``overlap=True`` on a 1D
+("x", N) mesh each round is split instead (:func:`_overlap_rounds`): a
+frame launch advances every shard's top and bottom k rows, their new rows
+are exchanged, and an interior launch that does not wait for the exchange
+advances the rest.
+
+A round is one launch per device (``csrc/solver_rounds.cu``), over every
+region the device holds: a region is a shard's extended block in the plain
+rounds, a frame or interior window of it in the split. The launch reads a
+region's ghosts on the device, through a table of the 3 x 3 states around
+its shard (:class:`RoundLaunch`): a neighbour on the same device is read in
+place, a neighbour on another device through a ghost buffer on this one,
+into which the round loop copies the slab the region reads after each round
+(``.to``-style copies in the plain rounds, ``solver.py::_FrameCopies`` in
+the split). Two wrappers, one kernel, each with the plain version of one
+device's round (:func:`device_round_reference`: the exchange read through
+the same table, then the per-shard plain rounds):
 
   - :func:`sharded_round` (B5, replaces ``solver_pallas.py::_round_kernel``):
     per-axis ghosts (k on a sharded axis, 0 on an unsharded one, whose
-    block edge is the global edge), reading eight planes folded once per
-    simulation on the extended block in global coordinates
-    (:func:`fold_planes`: beta, the six stencil coefficients of
-    ``ops/fdtd.py::stencil_coefficients`` and the listener mask).
+    block edge is the global edge). Its per-shard plain round,
+    :func:`sharded_round_reference`, reads the eight planes
+    :func:`fold_planes` folds once per simulation; the kernel folds the
+    coefficients from beta and Y in its windows.
   - :func:`banded_round` (B6, replaces
-    ``solver_pallas.py::_banded_round_kernel``): symmetric ghosts k,
-    reading only beta and the wall admittance Y and folding the
-    coefficients and the listener mask inside the round, in each window,
-    from the window's global coordinates ``geo = (gi0, gj0, lix, liy)``.
+    ``solver_pallas.py::_banded_round_kernel``): symmetric ghosts k. Its
+    per-shard plain round, :func:`banded_round_reference`, folds in each
+    of its tile windows, from the windows' global coordinates.
 
 Why the interior is exact (the cone argument): one step reads one cell
 back (velocities read p at i-1, j-1) and one cell ahead (pressure reads v
@@ -34,7 +42,8 @@ every window's edge are at least k cells from the cells that survive, and a
 round has at most k steps, so the zero shifts at those edges, the wrong
 folded coefficients on their first row and column, and whatever lies
 beyond them never reach the interior: it evolves bit for bit as the
-single-device solver does. Every copy of the listener cell, ghosts
+single-device solver does. This holds for the kernel's sub-rounds too,
+each with its own windows. Every copy of the listener cell, ghosts
 included, is injected, so ghost cells evolve as their owners do.
 
 Each round records the interior's pre-injection pressure into rows
@@ -46,7 +55,8 @@ come from its own recording: B2 (``fdtd_fused.rt60_moments``) after B5, B4
 devices.
 
 Route, per shard: B5 up to ``fdtd_fused.TILED_MIN_CELLS`` cells, B6 above;
-``band_rows`` forces B6. A 1x1 mesh that would take B6, without
+``band_rows`` forces B6 (and sets the tile of B6's plain version; the
+results do not depend on it). A 1x1 mesh that would take B6, without
 ``band_rows``, needs no exchange at all and delegates to the tiled route
 (B3 + B4, ``ops/fdtd_tiled.py``). The JAX module's Mosaic constraints (the
 128-lane width, band multiples of 8, VMEM budgets, recording-size checks)
@@ -60,14 +70,16 @@ nothing falls back. Each wrapper counts its launches in ``launches``
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from planeverb_tpu_torch import kernels
 from planeverb_tpu_torch.config import BoundaryType, GridParams
 from planeverb_tpu_torch.ops import analyzer, fdtd_fused, fdtd_tiled
-from planeverb_tpu_torch.ops._common import (check_field, counted,
-                                             fresh_acc, on_card,
+from planeverb_tpu_torch.ops._common import (barrier_words, check_field,
+                                             counted, fresh_acc, on_card,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
@@ -78,18 +90,16 @@ from planeverb_tpu_torch.parallel.solver import (_exchange_axes,
                                                  _exchange_frames, assemble,
                                                  shard_fields)
 
-__all__ = ["Sharded", "ROUND_TILES", "pick_round_tile", "fold_planes",
+__all__ = ["Sharded", "RoundLaunch", "fold_planes",
            "sharded_round", "sharded_round_reference", "banded_round",
-           "banded_round_reference", "simulate_sharded_fused",
-           "simulate_sharded_reference", "simulate_moments_sharded",
-           "simulate_moments_sharded_reference", "pipeline_sharded"]
+           "banded_round_reference", "device_round_reference",
+           "simulate_sharded_fused", "simulate_sharded_reference",
+           "simulate_moments_sharded", "simulate_moments_sharded_reference",
+           "pipeline_sharded"]
 
-# Interior tiles the round kernels choose from (each block keeps its tile's
-# window, the tile plus a halo-cell border, in shared memory):
-# :func:`pick_round_tile` chooses by a model of the round's time.
-ROUND_TILES = ((32, 32), (16, 32), (16, 16), (8, 8))
-# Dynamic shared memory one block may use on Hopper (227 KB)
-SMEM_BYTES = 232448
+# The tile of B6's plain version's windows when band_rows gives none (the
+# results do not depend on it)
+REFERENCE_TILE = (32, 32)
 # Global coordinates no window reaches: a listener outside the field
 _NOWHERE = -(1 << 30)
 
@@ -123,32 +133,6 @@ class Sharded:
         return grid[i // bx][j // by][..., i % bx, j % by]
 
 
-def round_smem_bytes(tile, halo: int) -> int:
-    """Shared memory of one round block: 11 window planes and the tile's 6
-    accumulator planes (``csrc/solver_rounds.cu::round_smem_bytes``)."""
-    tx, ty = tile
-    return ((tx + 2 * halo) * (ty + 2 * halo) * 11 + tx * ty * 6) * 4
-
-
-def pick_round_tile(bx: int, by: int, halo: int, n_sm: int,
-                    windows: int = 1):
-    """The tile of :data:`ROUND_TILES` with the least modelled round time on
-    a [bx, by] shard (or ``windows`` row windows of bx rows) and a card with
-    ``n_sm`` SMs: waves of blocks (one block per SM) times the cells of a
-    window, as ``fdtd_tiled.pick_tile``. Tiles whose window exceeds shared
-    memory are skipped; with none left the smallest stays, and its launch
-    raises."""
-    def cost(tile):
-        tx, ty = tile
-        blocks = windows * -(-bx // tx) * -(-by // ty)
-        return -(-blocks // n_sm) * (tx + 2 * halo) * (ty + 2 * halo)
-
-    fits = [t for t in ROUND_TILES
-            if round_smem_bytes(t, halo) <= SMEM_BYTES
-            and t[1] + 2 * halo <= 1024]
-    return min(fits or ROUND_TILES[-1:], key=cost)
-
-
 def _tile(tile) -> tuple[int, int]:
     tx, ty = (tile, tile) if isinstance(tile, int) else tuple(tile)
     if min(tx, ty) < 1:
@@ -158,7 +142,8 @@ def _tile(tile) -> tuple[int, int]:
 
 def fold_planes(params: GridParams, beta_e, y_e, gi0: int, gj0: int,
                 lix: int, liy: int) -> torch.Tensor:
-    """B5's eight planes of an extended block: beta, the six coefficients
+    """The eight planes of an extended block B5's plain version reads:
+    beta, the six coefficients
     of ``ops/fdtd.py::stencil_coefficients`` and the listener mask, as one
     [8, ex, ey] tensor. ``beta_e``/``y_e`` are the exchanged beta and
     admittance blocks, (gi0, gj0) the global coordinates of their cell
@@ -185,9 +170,9 @@ def _nsteps(params: GridParams, t0: int, halo: int) -> int:
 
 
 def _check_round(where, params, t0, halo, kx, ky, pulse, planes, n_planes,
-                 state_e, acc, rec, row0, windows, out_stride, out):
-    """Argument checks of a round wrapper. Returns (True where it launches,
-    the rows each window advances)."""
+                 state_e, acc, rec, row0, windows, out_stride, out) -> int:
+    """Argument checks of a per-shard plain round. Returns the rows each
+    window advances."""
     T = params.response_length
     if not 0 <= t0 < T or halo < 1:
         raise ValueError(f"{where}: need 0 <= t0 < T ({t0}, {T}) and "
@@ -217,11 +202,8 @@ def _check_round(where, params, t0, halo, kx, ky, pulse, planes, n_planes,
     if out is not None:
         check_field(where, "out", out, (3, bx, by))
         written += (out,)
-    card = on_card(where, pulse, planes, state_e, *written)
-    if card and not all(t.is_contiguous() for t in written):
-        raise ValueError(f"{where}: acc, rec and out must be contiguous (the "
-                         f"kernel writes them in place)")
-    return card, rows
+    on_card(where, pulse, planes, state_e, *written)   # one CUDA or CPU device
+    return rows
 
 
 def _window_rows(z: int, row0: int, out_stride: int, rows: int) -> slice:
@@ -230,18 +212,47 @@ def _window_rows(z: int, row0: int, out_stride: int, rows: int) -> slice:
     return slice(r, r + rows)
 
 
+
 # ------------------------------------------------------------ B5 rounds
 def sharded_round_reference(params: GridParams, t0: int, halo: int, kx: int,
                             ky: int, pulse, planes, state_e, acc, rec,
                             row0: int = 0, windows: int = 1,
                             out_stride: int = 0, out=None):
-    """Plain version of B5: ``fdtd_step_folded`` on each window's whole
-    extended block, on any device. Arguments and returns as
-    :func:`sharded_round`."""
+    """One round of one shard on its extended block (B5's plain version per
+    shard), or on row windows of it (the overlap split's frames and
+    interior): ``fdtd_step_folded`` on each window's whole extended block,
+    on any device.
+
+    Args:
+      t0: the round's first step; it runs min(halo, T - t0) steps.
+      halo: k, the round length.
+      kx, ky: the extended block's ghost widths (0 on an unsharded axis).
+      pulse: [T] source pulse.
+      planes: [8, bx + 2kx, by + 2ky] from :func:`fold_planes`; with row
+        windows, each window's extended block of rows + 2kx rows, stacked:
+        [8, windows * (rows + 2kx), by + 2ky].
+      state_e: [3, ...] the extended p, vx, vy in the planes' layout, p
+        after the previous round's injection (zeros before the first
+        round).
+      acc: [6, bx, by] onset, flux_x, flux_y, e_dry, e_wet, e_total of the
+        shard, the windows' rows updated in place.
+      rec: [T, bx, by] the shard's recording; rows [t0, t0 + nsteps) of the
+        windows' shard rows are written.
+      row0, windows, out_stride: ``windows`` (1 or 2) row windows; window z
+        advances shard rows [row0 + z * out_stride, + rows). The default,
+        one window from row 0, is the plain round on the whole shard.
+      out: [3, bx, by] buffer of the new state, written on the windows'
+        rows (default: a new tensor).
+    Returns ``out``: the new p (after the round's last injection), vx, vy.
+    """
+    t0, halo, kx, ky = int(t0), int(halo), int(kx), int(ky)
+    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
+    rows = _check_round("sharded_round_reference", params, t0, halo, kx, ky,
+                        pulse, planes, 8, state_e, acc, rec, row0, windows,
+                        out_stride, out)
     scalars = window_scalars(params)
     bx, by = acc.shape[-2:]
     ex = state_e.shape[1] // windows
-    rows = ex - 2 * kx
     if out is None:
         out = torch.empty((3, bx, by), dtype=torch.float32, device=acc.device)
     inner = (slice(kx, kx + rows), slice(ky, ky + by))
@@ -261,87 +272,37 @@ def sharded_round_reference(params: GridParams, t0: int, halo: int, kx: int,
     return out
 
 
-@counted
-def sharded_round(params: GridParams, t0: int, halo: int, kx: int, ky: int,
-                  pulse, planes, state_e, acc, rec, tile=None, row0: int = 0,
-                  windows: int = 1, out_stride: int = 0, out=None):
-    """One round of one shard on its extended block (B5), or on row windows
-    of it (the overlap split's frames and interior).
-
-    Args:
-      t0: the round's first step; it runs min(halo, T - t0) steps.
-      halo: k, the round length and the kernel's window border.
-      kx, ky: the extended block's ghost widths (0 on an unsharded axis).
-      pulse: [T] source pulse.
-      planes: [8, bx + 2kx, by + 2ky] from :func:`fold_planes`; with row
-        windows, each window's extended block of rows + 2kx rows, stacked:
-        [8, windows * (rows + 2kx), by + 2ky].
-      state_e: [3, ...] the extended p, vx, vy in the planes' layout, p
-        after the previous round's injection (zeros before the first
-        round).
-      acc: [6, bx, by] onset, flux_x, flux_y, e_dry, e_wet, e_total of the
-        shard, the windows' rows updated in place.
-      rec: [T, bx, by] the shard's recording; rows [t0, t0 + nsteps) of the
-        windows' shard rows are written.
-      tile: the kernel's interior tile (default :func:`pick_round_tile`'s);
-        the results do not depend on it.
-      row0, windows, out_stride: ``windows`` (1 or 2) row windows; window z
-        advances shard rows [row0 + z * out_stride, + rows). The default,
-        one window from row 0, is the plain round on the whole shard.
-      out: [3, bx, by] buffer of the new state, written on the windows'
-        rows (default: a new tensor).
-    Returns ``out``: the new p (after the round's last injection), vx, vy.
-    """
-    where = "sharded_round"
-    t0, halo, kx, ky = int(t0), int(halo), int(kx), int(ky)
-    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
-    card, rows = _check_round(where, params, t0, halo, kx, ky, pulse, planes,
-                              8, state_e, acc, rec, row0, windows,
-                              out_stride, out)
-    if not card:
-        return sharded_round_reference(params, t0, halo, kx, ky, pulse,
-                                       planes, state_e, acc, rec, row0,
-                                       windows, out_stride, out)
-    bx, by = acc.shape[-2:]
-    dev = acc.device
-    tx, ty = _tile(tile) if tile is not None else pick_round_tile(
-        rows, by, halo,
-        torch.cuda.get_device_properties(dev).multi_processor_count, windows)
-    planes = planes.contiguous()
-    state_e = state_e.contiguous()
-    pulse = pulse.contiguous()
-    if out is None:
-        out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pv_sharded_round(
-            planes.data_ptr(), state_e.data_ptr(),
-            pulse.data_ptr(), rec.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), rows, by, kx, ky, windows, bx, row0, out_stride,
-            t0, _nsteps(params, t0, halo), halo, tx, ty,
-            *window_scalars(params), stream)
-    kernels.check(err, where)
-    sharded_round.launches += 1
-    return out
-
 
 # ------------------------------------------------------------ B6 rounds
 def banded_round_reference(params: GridParams, t0: int, halo: int, pulse,
                            fields, geo, state_e, acc, rec, tile=None,
                            row0: int = 0, windows: int = 1,
                            out_stride: int = 0, out=None):
-    """Plain version of B6: per row window, the kernel's tile windows
-    (tile plus a halo-cell border, zeros beyond the extended block)
-    batched, each folding its own coefficients and listener mask,
-    ``fdtd_step_folded`` on all of them; on any device. Arguments and
-    returns as :func:`banded_round` (default tile: the first of
-    :data:`ROUND_TILES`)."""
-    k = halo
-    tx, ty = _tile(ROUND_TILES[0] if tile is None else tile)
+    """B6's plain version per shard: one round of one shard on its extended
+    block with symmetric ghosts ``halo``, or on row windows of it, cut into
+    tile windows (tile plus a halo-cell border, zeros beyond the extended
+    block) batched, each folding its own coefficients and listener mask
+    from its global coordinates; ``fdtd_step_folded`` on all of them, on
+    any device.
+
+    Arguments and returns as :func:`sharded_round_reference`, and:
+      fields: [2, bx + 2k, by + 2k] beta and admittance Y of the extended
+        block (with row windows, the windows' blocks stacked, as
+        ``state_e``).
+      geo: (gi0, gj0, lix, liy): the global coordinates of window 0's
+        extended cell (0, 0) (window z's is z * out_stride rows further) and
+        of the listener.
+      tile: the windows' interior tile (default :data:`REFERENCE_TILE`; the
+        results do not depend on it).
+    """
+    t0, k = int(t0), int(halo)
+    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
+    rows = _check_round("banded_round_reference", params, t0, k, k, k, pulse,
+                        fields, 2, state_e, acc, rec, row0, windows,
+                        out_stride, out)
+    tx, ty = _tile(REFERENCE_TILE if tile is None else tile)
     bx, by = acc.shape[-2:]
     ex = state_e.shape[1] // windows
-    rows = ex - 2 * k
     ntx, nty = -(-rows // tx), -(-by // ty)
     gi0, gj0, lix, liy = (int(v) for v in geo)
     scalars = window_scalars(params)
@@ -397,59 +358,281 @@ def banded_round_reference(params: GridParams, t0: int, halo: int, pulse,
     return out
 
 
-@counted
-def banded_round(params: GridParams, t0: int, halo: int, pulse, fields,
-                 geo, state_e, acc, rec, tile=None, row0: int = 0,
-                 windows: int = 1, out_stride: int = 0, out=None):
-    """One round of one shard on its extended block, or on row windows of
-    it, folding in the round (B6).
+# ------------------------------------------------ one device's round launch
+def _side(d: int, b: int, k: int) -> slice:
+    """The rows (or columns) of a neighbour on side d (-1, 0, 1) that a
+    shard's k ghosts read: its last k, all b, or its first k."""
+    return (slice(b - k, b), slice(0, b), slice(0, k))[d + 1]
 
-    Arguments and returns as :func:`sharded_round`, with symmetric ghosts
-    ``halo`` on both axes, and:
-      fields: [2, bx + 2k, by + 2k] beta and admittance Y of the extended
-        block (with row windows, the windows' blocks stacked, as
-        ``state_e``).
-      geo: (gi0, gj0, lix, liy): the global coordinates of window 0's
-        extended cell (0, 0) (window z's is z * out_stride rows further) and
-        of the listener.
-      tile: the interior tile of the kernel and of the plain version's
-        windows (the results do not depend on it).
+
+class _Shard:
+    """One shard of a sharded pass: its state in two buffers (by round
+    parity: round c reads ``state[c % 2]`` and writes the other), its
+    accumulators [6, bx, by] and recording [T, bx, by], its extended beta
+    and Y [2, bx + 2kx, by + 2ky] (exchanged once a simulation), and what
+    it reads around it (:meth:`source`)."""
+
+    def __init__(self, i: int, j: int, bx: int, by: int, T: int, device,
+                 statics):
+        self.i, self.j, self.bx, self.by = i, j, bx, by
+        self.device = device
+        self.state = torch.zeros((2, 3, bx, by), dtype=torch.float32,
+                                 device=device)
+        self.acc = torch.stack(fresh_acc((bx, by), device))
+        self.rec = torch.empty((T, bx, by), dtype=torch.float32,
+                               device=device)
+        self.statics = statics.contiguous()
+        # (dx, dy) -> (tensor, i0, j0, by parity): the neighbour's two
+        # state buffers, read in place, or a ghost buffer [3, h, w] on this
+        # shard's device. Tensors only: no shard refers to another, so a
+        # pass's shards (and recordings) go as soon as it ends.
+        self.near = {}
+        # (buffer, the sender's state buffers, rows, cols): the slabs the
+        # ghost buffers hold
+        self.ghosts = []
+
+    def source(self, dx: int, dy: int, parity: int):
+        """(tensor [3, h, w], i0, j0): the state this shard's ghosts on side
+        (dx, dy) read at the start of a round of ``parity``, and the shard
+        cell of its element (0, 0); (0, 0) is the shard's own state. None
+        beyond the global edge (zeros)."""
+        if (dx, dy) == (0, 0):
+            return self.state[parity], 0, 0
+        n = self.near.get((dx, dy))
+        if n is None:
+            return None
+        t, i0, j0, by_parity = n
+        return (t[parity] if by_parity else t), i0, j0
+
+
+def _link(shards, kx: int, ky: int, slabs: bool) -> None:
+    """Give every shard its neighbours on the sides its ghosts reach: a
+    neighbour on the same device is read in place; one on another device
+    (or every one, with ``slabs``) through a ghost buffer on the shard's
+    device holding the slab its ghosts read."""
+    mx, my = len(shards), len(shards[0])
+    for i in range(mx):
+        for j in range(my):
+            s = shards[i][j]
+            for dx in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    ni, nj = i + dx, j + dy
+                    if ((dx, dy) == (0, 0) or (dx and not kx)
+                            or (dy and not ky) or not 0 <= ni < mx
+                            or not 0 <= nj < my):
+                        continue
+                    n = shards[ni][nj]
+                    if n.device == s.device and not slabs:
+                        s.near[(dx, dy)] = (n.state, dx * s.bx, dy * s.by,
+                                            True)
+                        continue
+                    rows, cols = _side(dx, s.bx, kx), _side(dy, s.by, ky)
+                    buf = torch.zeros(
+                        (3, rows.stop - rows.start, cols.stop - cols.start),
+                        dtype=torch.float32, device=s.device)
+                    s.near[(dx, dy)] = (buf, (-kx, 0, s.bx)[dx + 1],
+                                        (-ky, 0, s.by)[dy + 1], False)
+                    s.ghosts.append((buf, n.state, rows, cols))
+
+
+class RoundLaunch:
+    """One device's round launch for a simulation: a list of regions
+    (shard, orow, rows), the extended blocks of ``rows`` interior rows of
+    a shard from shard row ``orow``, with ghosts kx, ky, all on one device.
+
+    On a card it holds the kernel's tile (``fdtd_tiled.pick_tile`` over the
+    regions' blocks), each region's scratch for the state between
+    sub-rounds and the region table (``kernels.RoundRegion``) for either
+    state parity, made once: the tensors the table points at live as long
+    as the launch. The plain version (:func:`device_round_reference`)
+    reads the same sources.
     """
-    where = "banded_round"
-    t0, halo = int(t0), int(halo)
-    row0, windows, out_stride = int(row0), int(windows), int(out_stride)
-    card, rows = _check_round(where, params, t0, halo, halo, halo, pulse,
-                              fields, 2, state_e, acc, rec, row0, windows,
-                              out_stride, out)
-    if not card:
-        return banded_round_reference(params, t0, halo, pulse, fields, geo,
-                                      state_e, acc, rec, tile, row0, windows,
-                                      out_stride, out)
-    bx, by = acc.shape[-2:]
-    dev = acc.device
-    tx, ty = _tile(tile) if tile is not None else pick_round_tile(
-        rows, by, halo,
-        torch.cuda.get_device_properties(dev).multi_processor_count, windows)
-    gi0, gj0, lix, liy = (int(v) for v in geo)
-    fields = fields.contiguous()
-    state_e = state_e.contiguous()
-    pulse = pulse.contiguous()
-    if out is None:
-        out = torch.empty((3, bx, by), dtype=torch.float32, device=dev)
+
+    def __init__(self, params: GridParams, regions, kx: int, ky: int,
+                 banded: bool, halo: int, pulse, lix: int, liy: int,
+                 ref_tile):
+        self.params = params
+        self.regions = regions
+        self.kx, self.ky, self.banded, self.halo = kx, ky, banded, halo
+        self.pulse = pulse
+        self.device = pulse.device
+        self.lix, self.liy = lix, liy
+        self.ref_tile = ref_tile
+        self._planes = {}
+        if self.device.type == "cuda":
+            self._make_table()
+
+    def blocks(self):
+        """The regions' extended blocks, (rows, cols)."""
+        return [(rows + 2 * self.kx, s.by + 2 * self.ky)
+                for s, _, rows in self.regions]
+
+    def _make_table(self) -> None:
+        k = fdtd_tiled.HALO
+        self.tile = tx, ty = fdtd_tiled.pick_tile(
+            self.blocks(), k, torch.cuda.get_device_properties(
+                self.device).multi_processor_count)
+        # the state between sub-rounds, where a round has more than one
+        self.scratch = [torch.empty((2, 3, ex, ey), dtype=torch.float32,
+                                    device=self.device)
+                        if self.halo > k else None
+                        for ex, ey in self.blocks()]
+        n = len(self.regions)
+        tables = []
+        for parity in (0, 1):
+            table = (kernels.RoundRegion * n)()
+            tile0 = 0
+            for q, ((s, orow, rows), (ex, ey)) in enumerate(
+                    zip(self.regions, self.blocks())):
+                reg = table[q]
+                for dx in (-1, 0, 1):
+                    for dy in (-1, 0, 1):
+                        src = s.source(dx, dy, parity)
+                        if src is not None:
+                            t, i0, j0 = src
+                            reg.src[(dx + 1) * 3 + dy + 1] = \
+                                kernels.RoundSource(t.data_ptr(), t.stride(0),
+                                                    t.stride(1), i0, j0)
+                reg.statics = s.statics[0, orow].data_ptr()
+                reg.splane = s.statics.stride(0)
+                if self.scratch[q] is not None:
+                    reg.scratch = self.scratch[q].data_ptr()
+                reg.rec, reg.acc = s.rec.data_ptr(), s.acc.data_ptr()
+                reg.out = s.state[1 - parity].data_ptr()
+                reg.ex, reg.ey, reg.kx, reg.ky = ex, ey, self.kx, self.ky
+                reg.bx, reg.by, reg.orow, reg.rows = s.bx, s.by, orow, rows
+                reg.oi = s.i * s.bx + orow - self.kx
+                reg.oj = s.j * s.by - self.ky
+                reg.tile0, reg.tiles_y = tile0, -(-ey // ty)
+                tile0 += reg.tiles_y * -(-ex // tx)
+            tables.append(bytes(table))
+        self.tiles = tile0
+        # one copy to the card, once a simulation
+        self.table = torch.frombuffer(bytearray(b"".join(tables)),
+                                      dtype=torch.uint8).to(self.device)
+        bar = barrier_words(self.device, "round")
+        size = ctypes.sizeof(kernels.RoundRegion)
+        self.args = [(self.table.data_ptr() + parity * n * size,
+                      self.pulse.data_ptr(), bar.data_ptr(), n, self.tiles,
+                      tx, ty, k) for parity in (0, 1)]
+        p = self.params
+        self.tail = (self.lix, self.liy, p.grid_x, p.grid_y,
+                     int(p.boundary_type == BoundaryType.ABSORBING),
+                     int(self.banded), *window_scalars(p))
+
+    def gather(self, s: _Shard, orow: int, rows: int, parity: int):
+        """The extended state [3, rows + 2kx, by + 2ky] of a region at the
+        start of a round of ``parity``, read from its shard's sources as
+        the kernel reads them (zeros beyond the global edge): the exchange,
+        as ``solver.py::_exchange_axes`` builds it, of the region's rows."""
+        kx, ky, bx, by = self.kx, self.ky, s.bx, s.by
+        lo, hi = orow - kx, orow + rows + kx
+
+        def bands(a, b, n):
+            return [(d, x, y) for d, x, y in ((-1, a, min(b, 0)),
+                                              (0, max(a, 0), min(b, n)),
+                                              (1, max(a, n), b)) if x < y]
+
+        out = []
+        for dx, a, b in bands(lo, hi, bx):
+            row = []
+            for dy, c, d in bands(-ky, by + ky, by):
+                src = s.source(dx, dy, parity)
+                if src is None:
+                    row.append(torch.zeros((3, b - a, d - c),
+                                           dtype=torch.float32,
+                                           device=s.device))
+                else:
+                    t, i0, j0 = src
+                    row.append(t[:, a - i0:b - i0, c - j0:d - j0])
+            out.append(torch.cat(row, dim=-1))
+        return torch.cat(out, dim=1)
+
+    def planes(self, s: _Shard, orow: int, rows: int):
+        """B5's plain version's eight planes of a region (folded once)."""
+        key = (s.i, s.j, orow)
+        if key not in self._planes:
+            st = s.statics[:, orow:orow + rows + 2 * self.kx]
+            self._planes[key] = fold_planes(
+                self.params, st[0], st[1], s.i * s.bx + orow - self.kx,
+                s.j * s.by - self.ky, self.lix, self.liy)
+        return self._planes[key]
+
+
+def device_round_reference(params: GridParams, t0: int, halo: int,
+                           launch: RoundLaunch, parity: int) -> None:
+    """Plain version of one device's round (B5 or B6, as ``launch``): each
+    region's extended state read from its sources (:meth:`RoundLaunch.gather`,
+    the exchange), then the per-shard plain round on it
+    (:func:`sharded_round_reference` / :func:`banded_round_reference`),
+    writing the region's rows of its shard's recording, accumulators and
+    new state (``state[1 - parity]``); on any device."""
+    kx, ky = launch.kx, launch.ky
+    for s, orow, rows in launch.regions:
+        ext = launch.gather(s, orow, rows, parity)
+        out = s.state[1 - parity]
+        if launch.banded:
+            geo = (s.i * s.bx + orow - kx, s.j * s.by - ky, launch.lix,
+                   launch.liy)
+            banded_round_reference(
+                params, t0, halo, launch.pulse,
+                s.statics[:, orow:orow + rows + 2 * kx], geo, ext, s.acc,
+                s.rec, launch.ref_tile, row0=orow, out=out)
+        else:
+            sharded_round_reference(params, t0, halo, kx, ky, launch.pulse,
+                                    launch.planes(s, orow, rows), ext, s.acc,
+                                    s.rec, row0=orow, out=out)
+
+
+def _device_round(where: str, wrapper, params: GridParams, t0: int,
+                  halo: int, launch: RoundLaunch, parity: int,
+                  banded: bool) -> None:
+    T = params.response_length
+    t0, halo, parity = int(t0), int(halo), int(parity)
+    if not 0 <= t0 < T or halo != launch.halo or parity not in (0, 1):
+        raise ValueError(f"{where}: need 0 <= t0 < T ({t0}, {T}), the "
+                         f"launch's halo ({halo}, {launch.halo}) and a "
+                         f"parity of 0 or 1 ({parity})")
+    if launch.banded != banded:
+        raise ValueError(f"{where}: the launch's regions are "
+                         f"{'B6' if launch.banded else 'B5'}'s")
+    if not on_card(where, launch.pulse):
+        device_round_reference(params, t0, halo, launch, parity)
+        return
     lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pv_banded_round(
-            fields.data_ptr(), state_e.data_ptr(),
-            pulse.data_ptr(), rec.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), rows, by, halo, windows, bx, row0, out_stride,
-            t0, _nsteps(params, t0, halo), tx, ty, gi0, gj0, lix, liy,
-            params.grid_x, params.grid_y,
-            int(params.boundary_type == BoundaryType.ABSORBING),
-            *window_scalars(params), stream)
+    with torch.cuda.device(launch.device):
+        stream = torch.cuda.current_stream(launch.device).cuda_stream
+        err = lib.pv_device_round(*launch.args[parity], t0,
+                                  _nsteps(params, t0, halo), *launch.tail,
+                                  stream)
     kernels.check(err, where)
-    banded_round.launches += 1
-    return out
+    wrapper.launches += 1
+
+
+@counted
+def sharded_round(params: GridParams, t0: int, halo: int,
+                  launch: RoundLaunch, parity: int) -> None:
+    """One round (B5) of every region of ``launch``, one device's shards or
+    their row windows: min(halo, T - t0) steps from t0 on each region's
+    extended block, reading the state of parity ``parity`` (the shards'
+    and their neighbours', or ghost buffers) and writing the regions'
+    rows of their shards' recording (rows [t0, t0 + nsteps)),
+    accumulators and new state (``state[1 - parity]``, p after the round's
+    last injection). One launch on a card; the plain version
+    (:func:`device_round_reference`) on the CPU."""
+    _device_round("sharded_round", sharded_round, params, t0, halo, launch,
+                  parity, banded=False)
+
+
+@counted
+def banded_round(params: GridParams, t0: int, halo: int, launch: RoundLaunch,
+                 parity: int) -> None:
+    """:func:`sharded_round` for B6 launches (symmetric ghosts k on both
+    axes), the route of shards above ``fdtd_fused.TILED_MIN_CELLS`` cells
+    and of ``band_rows``."""
+    _device_round("banded_round", banded_round, params, t0, halo, launch,
+                  parity, banded=True)
+
 
 
 # ------------------------------------------------------------ the engine
@@ -504,165 +687,129 @@ def _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
     return out, (None if mom is None else Sharded(Moments, one(mom)))
 
 
-def _round_tile(mesh: Mesh, band_rows, rows: int, by: int, k: int,
-                windows: int = 1):
-    """The interior tile of a shard's round launches: ``band_rows``'s
-    square when given, :func:`pick_round_tile`'s on a card, else the first
-    of :data:`ROUND_TILES` (the plain B6's windows)."""
-    if band_rows is not None:
-        return int(band_rows), int(band_rows)
-    if mesh.device_type == "cuda":
-        return pick_round_tile(rows, by, k, torch.cuda.get_device_properties(
-            mesh.first_device).multi_processor_count, windows)
-    return ROUND_TILES[0]
+def _round_fn(banded: bool, reference: bool):
+    if reference:
+        return device_round_reference
+    return banded_round if banded else sharded_round
+
+
+def _shards(mesh: Mesh, beta_b, y_b, bx: int, by: int, kx: int, ky: int,
+            T: int):
+    """The mesh's shards, their beta and Y extended by kx / ky ghosts (once
+    a simulation)."""
+    beta_e = _exchange_axes(beta_b, kx, ky)
+    y_e = _exchange_axes(y_b, kx, ky)
+    return [[_Shard(i, j, bx, by, T, d, torch.stack([beta_e[i][j],
+                                                     y_e[i][j]]))
+             for j, d in enumerate(row)] for i, row in enumerate(mesh.devices)]
+
+
+def _launches(params, shards, regions_of, kx, ky, banded, k, pulse_on, lix,
+              liy, ref_tile):
+    """One :class:`RoundLaunch` per device, over ``regions_of(shard)`` of
+    each of its shards, in mesh order."""
+    by_device = {}
+    for row in shards:
+        for s in row:
+            by_device.setdefault(s.device, []).extend(regions_of(s))
+    return [RoundLaunch(params, regions, kx, ky, banded, k, pulse_on(dev),
+                        lix, liy, ref_tile)
+            for dev, regions in by_device.items()]
+
+
+def _results(shards):
+    return ([[s.rec for s in row] for row in shards],
+            [[s.acc for s in row] for row in shards])
 
 
 def _plain_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by, k,
-                  band_rows, banded, reference):
-    """The plain rounds: every round, each shard's state is extended by its
-    neighbours' ghosts and advanced by one B5 or B6 launch on the whole
-    extended block. Returns the (rec, acc) block grids."""
+                  ref_tile, banded, reference, slabs):
+    """The plain rounds: every round, one launch per device advances each
+    of its shards on its whole extended block, its ghosts read from its
+    neighbours' round-start state (in place on the same device, else from
+    ghost buffers refreshed after the round: ``.to``-style copies, ordered
+    with both devices' streams). ``slabs`` takes the ghost buffers for
+    every neighbour. Returns the (rec, acc) block grids."""
     mx, my = mesh.shape["x"], mesh.shape["y"]
     T = params.response_length
-    tile = _round_tile(mesh, band_rows, bx, by, k)
     kx, ky = (k, k) if banded else (k if mx > 1 else 0, k if my > 1 else 0)
-    beta_e = _exchange_axes(beta_b, kx, ky)
-    y_e = _exchange_axes(y_b, kx, ky)
-
-    if banded:
-        statics = [[torch.stack([b, y]) for b, y in zip(*rows)]
-                   for rows in zip(beta_e, y_e)]
-        fn = banded_round_reference if reference else banded_round
-
-        def run(i, j, t0, state_e):
-            geo = (i * bx - k, j * by - k, lix, liy)
-            return fn(params, t0, k, pulse_on(rec[i][j].device),
-                      statics[i][j], geo, state_e, acc[i][j], rec[i][j],
-                      tile=tile)
-    else:
-        statics = [[fold_planes(params, beta_e[i][j], y_e[i][j],
-                                i * bx - kx, j * by - ky, lix, liy)
-                    for j in range(my)] for i in range(mx)]
-
-        def run(i, j, t0, state_e):
-            args = (params, t0, k, kx, ky, pulse_on(rec[i][j].device),
-                    statics[i][j], state_e, acc[i][j], rec[i][j])
-            if reference:
-                return sharded_round_reference(*args)
-            return sharded_round(*args, tile=tile)
-
-    devs = mesh.devices
-    state = [[torch.zeros((3, bx, by), dtype=torch.float32, device=d)
-              for d in row] for row in devs]
-    acc = [[torch.stack(fresh_acc((bx, by), d)) for d in row]
-           for row in devs]
-    rec = [[torch.empty((T, bx, by), dtype=torch.float32, device=d)
-            for d in row] for row in devs]
+    shards = _shards(mesh, beta_b, y_b, bx, by, kx, ky, T)
+    _link(shards, kx, ky, slabs)
+    launches = _launches(params, shards, lambda s: [(s, 0, bx)], kx, ky,
+                         banded, k, pulse_on, lix, liy, ref_tile)
+    ghosts = [g for row in shards for s in row for g in s.ghosts]
+    step = _round_fn(banded, reference)
+    parity = 0
     for t0 in range(0, T, k):
-        # every shard's extended state is built, from the previous round's
-        # outputs, before any shard's round runs
-        ext = _exchange_axes(state, kx, ky)
-        state = [[run(i, j, t0, ext[i][j]) for j in range(my)]
-                 for i in range(mx)]
-    return rec, acc
+        for launch in launches:
+            step(params, t0, k, launch, parity)
+        parity ^= 1
+        if t0 + k < T:
+            for buf, sent, rows, cols in ghosts:
+                buf.copy_(sent[parity][:, rows, cols], non_blocking=True)
+    return _results(shards)
 
 
 def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
-                    k, band_rows, banded, reference):
+                    k, ref_tile, banded, reference, slabs):
     """The overlap split of the rounds on a 1D ("x", N) mesh with bx >= 3k,
     counterpart of ``solver_pallas.py::_overlap_impl`` (B5) and
-    ``_overlap_banded_impl`` (B6). Per round and shard
-    (``solver_pallas.py:489-521``):
+    ``_overlap_banded_impl`` (B6). Per round (``solver_pallas.py:489-521``):
 
-      1. one frame launch advances the shard's top and bottom k rows in two
-         3k-row windows, [top ghost k | rows 0:2k] and [rows bx-2k:bx |
-         bottom ghost k], from the round-start state and last round's
-         ghosts (zeros in round 0: the field is at rest);
-      2. the new frames are exchanged (``solver.py::_exchange_frames``),
-         which depends only on step 1;
-      3. the interior launch advances rows [k, bx - k) from the round-start
-         state itself, a window of the shard's bx rows whose frame rows are
-         its fringe; it does not wait for the exchange.
+      1. one frame launch per device advances the top and bottom k rows of
+         each of its shards, two regions of 3k rows, [top ghost k | rows
+         0:2k] and [rows bx-2k:bx | bottom ghost k], from the round-start
+         state; the ghosts are the neighbours' frames, read in place on the
+         same device or from ghost buffers;
+      2. the new frames are copied into the ghost buffers of neighbours on
+         other devices (``solver.py::_exchange_frames``: side streams),
+         which depends only on step 1; on one device nothing is copied;
+      3. one interior launch per device advances rows [k, bx - k) of each
+         of its shards, a region whose block is the shard's own bx rows; it
+         does not wait for the exchange.
 
-    Both launches write their rows of the shard's one recording,
-    accumulators and new state in place (the row windows of
-    :func:`sharded_round` / :func:`banded_round`), so nothing is
-    concatenated after them, and each cell goes through the plain rounds'
-    ops: the split is bit-equal to them. B5's windows read slices of the
-    planes folded on the [bx + 2k, by] extended block (y is unsharded);
-    B6's read beta and Y with symmetric ghosts (zero columns on a 1D mesh)
-    and fold from ``geo``: frames from global row px*bx - k (then bx - k
-    rows further), the interior from px*bx. The windows' statics are made
-    contiguous once per simulation. Returns the (rec, acc) block grids.
+    The launches write their rows of the shard's one recording,
+    accumulators and new state in place, so nothing is concatenated after
+    them, and each cell goes through the plain rounds' ops: the split is
+    bit-equal to them. B5's regions have no ghost columns (y is
+    unsharded); B6's have k zero ones. ``slabs`` takes the ghost buffers
+    on one device too. Returns the (rec, acc) block grids.
     """
     T = params.response_length
-    devs = [row[0] for row in mesh.devices]
     ky = k if banded else 0
-    beta_e = _exchange_axes(beta_b, k, ky)
-    y_e = _exchange_axes(y_b, k, ky)
-
-    def split(x):
-        # [P, bx + 2k, cols] -> (the frames' two 3k-row windows stacked,
-        # [P, 6k, cols]; the interior's, [P, bx, cols])
-        return (torch.cat([x[:, :3 * k], x[:, bx - k:]], dim=1),
-                x[:, k:k + bx].contiguous())
-
-    if banded:
-        statics = [split(torch.stack([b, y])) for (b,), (y,) in
-                   zip(beta_e, y_e)]
-    else:
-        statics = [split(fold_planes(params, b, y, i * bx - k, 0, lix, liy))
-                   for i, ((b,), (y,)) in enumerate(zip(beta_e, y_e))]
-    # the launches' row windows (0: the frames, 1: the interior) and tiles
-    wins = ({"row0": 0, "windows": 2, "out_stride": bx - k}, {"row0": k})
-    tiles = (_round_tile(mesh, band_rows, k, by, k, 2),
-             _round_tile(mesh, band_rows, bx - 2 * k, by, k))
-
-    def launch(i, t0, w, state_w, out):
-        pulse = pulse_on(devs[i])
-        if banded:
-            geo = (i * bx - k if w == 0 else i * bx, -k, lix, liy)
-            fn = banded_round_reference if reference else banded_round
-            fn(params, t0, k, pulse, statics[i][w], geo,
-               F.pad(state_w, (k, k)), acc[i], rec[i], tiles[w], out=out,
-               **wins[w])
-        elif reference:
-            sharded_round_reference(params, t0, k, k, 0, pulse, statics[i][w],
-                                    state_w, acc[i], rec[i], out=out,
-                                    **wins[w])
-        else:
-            sharded_round(params, t0, k, k, 0, pulse, statics[i][w], state_w,
-                          acc[i], rec[i], tiles[w], out=out, **wins[w])
-
-    state = [torch.zeros((3, bx, by), dtype=torch.float32, device=d)
-             for d in devs]
-    acc = [torch.stack(fresh_acc((bx, by), d)) for d in devs]
-    rec = [torch.empty((T, bx, by), dtype=torch.float32, device=d)
-           for d in devs]
-    top = [torch.zeros((3, k, by), dtype=torch.float32, device=d)
-           for d in devs]
-    bot = [torch.zeros_like(g) for g in top]
+    shards = _shards(mesh, beta_b, y_b, bx, by, k, ky, T)
+    _link(shards, k, ky, slabs)
+    frames = _launches(params, shards,
+                       lambda s: [(s, 0, k), (s, bx - k, k)], k, ky, banded,
+                       k, pulse_on, lix, liy, ref_tile)
+    inner = _launches(params, shards, lambda s: [(s, k, bx - 2 * k)], k, ky,
+                      banded, k, pulse_on, lix, liy, ref_tile)
+    ghosts = [g for row in shards for s in row for g in s.ghosts]
+    step = _round_fn(banded, reference)
+    parity = 0
     copies = None
     for t0 in range(0, T, k):
-        new = [torch.empty((3, bx, by), dtype=torch.float32, device=d)
-               for d in devs]
-        for i, d in enumerate(devs):
+        for launch in frames:
             if copies is not None:
-                copies.wait(d)
-            frames = torch.cat([top[i], state[i][:, :2 * k],
-                                state[i][:, bx - 2 * k:], bot[i]], dim=1)
-            launch(i, t0, 0, frames, new[i])
-        top, bot, copies = _exchange_frames(new, k)
-        for i in range(len(devs)):
-            launch(i, t0, 1, state[i], new[i])
-        state = new
-    return [[r] for r in rec], [[a] for a in acc]
+                copies.wait(launch.device)
+            step(params, t0, k, launch, parity)
+        copies = _exchange_frames(
+            [(sent[1 - parity][:, rows, cols], buf)
+             for buf, sent, rows, cols in ghosts])
+        for launch in inner:
+            step(params, t0, k, launch, parity)
+        parity ^= 1
+    return _results(shards)
 
 
 def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
                    mesh: Mesh, nx_pad: int, ny_pad: int, halo: int,
                    band_rows, overlap: bool, reference: bool,
-                   with_moments: bool):
+                   with_moments: bool, slabs: bool = False):
+    """The sharded pass behind the public functions. ``slabs`` (for tests
+    and the card's smoke run only) reads every neighbour's ghosts through
+    ghost buffers, the path of neighbours on other devices, even where
+    they share a device."""
     mx, my = mesh.shape["x"], mesh.shape["y"]
     if (nx_pad % mx or ny_pad % my or nx_pad < params.nx
             or ny_pad < params.ny):
@@ -710,8 +857,9 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
         return pulses[dev]
 
     rounds = _overlap_rounds if overlap else _plain_rounds
+    ref_tile = REFERENCE_TILE if band_rows is None else _tile(band_rows)
     rec, acc = rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
-                      k, band_rows, banded, reference)
+                      k, ref_tile, banded, reference, slabs)
 
     def grid(c):
         return [[a[c] for a in row] for row in acc]
@@ -735,6 +883,7 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
         "s0": [[v[0] for v in row] for row in s],
         "s1": [[v[1] for v in row] for row in s]})
     return res, mom
+
 
 
 def simulate_sharded_fused(params: GridParams, beta, refl, pulse,
@@ -838,3 +987,4 @@ def pipeline_sharded(params: GridParams, beta, refl, pulse,
         crop(res, "flux_y"), efree, listener_x, listener_z,
         compute_directions=compute_directions)
     return res, out
+

@@ -103,7 +103,7 @@ def main() -> int:
         lix, liy = p.world_to_cell(size / 2, size / 2)
         shape = f"{p.nx}x{p.ny}x{p.response_length}"
         row = {"shape": shape, "pick_tile": fdtd_tiled.pick_tile(
-            p.nx, p.ny, fdtd_tiled.HALO, n_sm), "b3_ms": {}, "b4_ms": {}}
+            [(p.nx, p.ny)], fdtd_tiled.HALO, n_sm), "b3_ms": {}, "b4_ms": {}}
 
         # -- B3 tilings, the accumulators where the kernel puts them and
         # in global memory, each bit-equal to B1; full passes and passes of

@@ -170,10 +170,11 @@ def _random(shape, rng):
 
 @pytest.mark.parametrize("banded", [False, True], ids=["B5", "B6"])
 def test_round_windows_equal_plain_round_rows(room, banded):
-    """On random state and statics, the frame launch (two 3k-row windows)
-    and the interior launch (the shard's bx rows) write exactly the rows a
-    plain round on the whole extended block writes, in the recording, the
-    accumulators and the new state, and leave every other row alone."""
+    """On random state and statics, the per-shard plain rounds' row
+    windows, the frames (two 3k-row windows) and the interior (the shard's
+    bx rows), write exactly the rows a plain round on the whole extended
+    block writes, in the recording, the accumulators and the new state, and
+    leave every other row alone."""
     p, _, fields, _, _ = room
     bx, by, k, t0 = 12, 10, 4, 8
     ky = k if banded else 0
@@ -190,11 +191,12 @@ def test_round_windows_equal_plain_round_rows(room, banded):
 
     def run(stat, state, acc, rec, gi0, **win):
         if banded:
-            return solver_fused.banded_round(p, t0, k, pulse, stat,
-                                             (gi0, -k, 9, 3), state, acc,
-                                             rec, tile=(4, 8), **win)
-        return solver_fused.sharded_round(p, t0, k, k, 0, pulse, stat,
-                                          state, acc, rec, **win)
+            return solver_fused.banded_round_reference(
+                p, t0, k, pulse, stat, (gi0, -k, 9, 3), state, acc, rec,
+                tile=(4, 8), **win)
+        return solver_fused.sharded_round_reference(p, t0, k, k, 0, pulse,
+                                                    stat, state, acc, rec,
+                                                    **win)
 
     acc_p, rec_p = fresh()
     plain = run(statics, ext, acc_p, rec_p, 2)
@@ -219,9 +221,9 @@ def test_round_windows_equal_plain_round_rows(room, banded):
 
 
 def test_round_window_checks(room):
-    """The row-window arguments are checked before anything runs: one or
-    two windows dividing the state's rows, disjoint and inside the shard,
-    and an ``out`` of the shard's shape."""
+    """The per-shard plain rounds check their row-window arguments before
+    anything runs: one or two windows dividing the state's rows, disjoint
+    and inside the shard, and an ``out`` of the shard's shape."""
     p, _, fields, _, _ = room
     bx, by, k = 12, 10, 4
     rng = np.random.default_rng(4)
@@ -232,8 +234,9 @@ def test_round_window_checks(room):
         (8, 6 * k, by), rng)
 
     def frames(**kw):
-        return solver_fused.sharded_round(p, 0, k, k, 0, pulse, fr_planes,
-                                          fr_state, acc, rec, **kw)
+        return solver_fused.sharded_round_reference(p, 0, k, k, 0, pulse,
+                                                    fr_planes, fr_state, acc,
+                                                    rec, **kw)
 
     with pytest.raises(ValueError, match="windows must be 1 or 2"):
         frames(windows=3)
@@ -246,9 +249,9 @@ def test_round_window_checks(room):
     with pytest.raises(ValueError, match="out must be"):
         frames(windows=2, out_stride=bx - k, out=torch.zeros((3, bx, by - 1)))
     with pytest.raises(ValueError, match="planes"):
-        solver_fused.banded_round(p, 0, k, pulse, _random((2, 6 * k, by), rng),
-                                  (0, 0, 1, 1), F.pad(fr_state, (k, k)), acc,
-                                  rec, windows=2, out_stride=bx - k)
+        solver_fused.banded_round_reference(
+            p, 0, k, pulse, _random((2, 6 * k, by), rng), (0, 0, 1, 1),
+            F.pad(fr_state, (k, k)), acc, rec, windows=2, out_stride=bx - k)
     with pytest.raises(ValueError, match="meta"):
         frames(windows=2, out_stride=bx - k,
                out=torch.zeros((3, bx, by), device="meta"))
@@ -290,20 +293,19 @@ def test_overlap_on_1x1_takes_plain_rounds(room, monkeypatch):
 
 
 def test_frame_exchange_on_one_device():
-    """Shards sharing a device exchange views: a ghost is the neighbour's
-    new frame itself (nothing copied), zeros at the global edges, and no
-    copy to wait for."""
+    """The frame exchange copies each new frame into its ghost buffer; on
+    one device on the current stream, with no copy across cards to wait
+    for. (Shards sharing a device read each other's frames in place, and
+    copy only on the forced slab path.)"""
     rng = np.random.default_rng(5)
     states = [_random((3, 9, 5), rng) for _ in range(3)]
-    top, bot, copies = tsolver._exchange_frames(states, 2)
-    assert torch.equal(top[0], torch.zeros((3, 2, 5)))
-    assert torch.equal(bot[2], torch.zeros((3, 2, 5)))
-    for i in (1, 2):
-        assert torch.equal(top[i], states[i - 1][:, -2:])
-        assert top[i].data_ptr() == states[i - 1][:, -2:].data_ptr()
-    for i in (0, 1):
-        assert torch.equal(bot[i], states[i + 1][:, :2])
-        assert bot[i].data_ptr() == states[i + 1].data_ptr()
+    ghosts = [torch.zeros((3, 2, 5)) for _ in range(4)]
+    pairs = [(states[0][:, -2:], ghosts[0]), (states[1][:, :2], ghosts[1]),
+             (states[1][:, -2:], ghosts[2]), (states[2][:, :2], ghosts[3])]
+    copies = tsolver._exchange_frames(pairs)
+    for slab, ghost in pairs:
+        assert torch.equal(ghost, slab)
+        assert ghost.data_ptr() != slab.data_ptr()
     copies.wait(torch.device("cpu"))      # nothing crossed a device
 
 

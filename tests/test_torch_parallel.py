@@ -34,7 +34,7 @@ from planeverb_tpu.scene import demo_scene
 from planeverb_tpu_torch import config as tcfg
 from planeverb_tpu_torch.convert import fields_from_numpy
 from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
-from planeverb_tpu_torch.ops._common import fresh_acc
+from planeverb_tpu_torch.ops.fdtd import admittance
 from planeverb_tpu_torch.parallel import (grid_mesh, mesh_from_count,
                                           pad_to_mesh, shard_fields,
                                           simulate_moments_sharded,
@@ -307,56 +307,81 @@ def test_listener_outside_field(room):
 
 
 # ------------------------------------------------------ wrappers and errors
-def test_round_wrappers_take_plain_path_on_cpu(room):
-    """On CPU tensors both wrappers run their plain versions (no launch);
-    on another device they raise."""
-    p, _, fields, _, _ = room
-    bx, by, k = 12, 10, 4
+def _launch(p, fields, lix, liy, k, banded):
+    """One device's round launch over the four shards of a 2x2 cpu mesh,
+    on random round-start state, as the plain rounds build it."""
+    mesh = _cpu_mesh((2, 2))
+    b, r, pl, nxp, nyp = _padded(p, fields, mesh)
+    bx, by = nxp // 2, nyp // 2
+    (bb,), (yb,) = shard_fields(mesh, b), shard_fields(mesh, admittance(r))
+    kx, ky = k, k
+    shards = solver_fused._shards(mesh, bb, yb, bx, by, kx, ky,
+                                  p.response_length)
+    solver_fused._link(shards, kx, ky, False)
     rng = np.random.default_rng(2)
+    for row in shards:
+        for s in row:
+            s.state[0] = torch.from_numpy(
+                rng.standard_normal((3, bx, by)).astype(np.float32))
+            s.rec.zero_()
+    regions = [(s, 0, bx) for row in shards for s in row]
+    return shards, solver_fused.RoundLaunch(p, regions, kx, ky, banded, k, pl,
+                                            lix, liy, (8, 8))
 
-    def t(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    pulse = fields[2]
-    state = t(3, bx + 2 * k, by)
-    acc = torch.stack(fresh_acc((bx, by), "cpu"))
-    rec = torch.zeros((p.response_length, bx, by))
+def test_round_wrappers_take_plain_path_on_cpu(room):
+    """On CPU tensors both wrappers run one device's round as its plain
+    version (no launch), writing the round's rows of every shard's
+    recording and its new state; a launch of the other mode, a bad t0,
+    halo or parity, and another device raise."""
+    p, _, fields, (lix, liy), _ = room
+    k = 4
     fdtd_fused.reset_launch_counts()
-    out = solver_fused.sharded_round(p, 8, k, k, 0, pulse,
-                                     t(8, bx + 2 * k, by), state,
-                                     acc.clone(), rec)
-    assert out.shape == (3, bx, by) and solver_fused.sharded_round.launches == 0
-    assert rec[:8].abs().sum() == 0 and rec[8:12].abs().sum() > 0
-    ext = t(3, bx + 2 * k, by + 2 * k)
-    out = solver_fused.banded_round(p, p.response_length - 3, k, pulse,
-                                    t(2, bx + 2 * k, by + 2 * k),
-                                    (0, 0, 3, 3), ext, acc.clone(), rec)
-    assert out.shape == (3, bx, by) and solver_fused.banded_round.launches == 0
-    meta = ext.to("meta")
-    with pytest.raises(ValueError, match="meta"):
-        solver_fused.banded_round(
-            p, 0, k, pulse.to("meta"), torch.zeros(
-                (2, bx + 2 * k, by + 2 * k), device="meta"), (0, 0, 3, 3),
-            meta, acc.to("meta"), rec.to("meta"))
-    with pytest.raises(ValueError, match="planes"):
-        solver_fused.sharded_round(p, 0, k, k, 0, pulse, t(7, bx + 2 * k, by),
-                                   state, acc, rec)
+    shards, launch = _launch(p, fields, lix, liy, k, banded=False)
+    solver_fused.sharded_round(p, 8, k, launch, 0)
+    assert solver_fused.sharded_round.launches == 0
+    for row in shards:
+        for s in row:
+            assert s.rec[:8].abs().sum() == 0 and s.rec[8:12].abs().sum() > 0
+            assert s.state[1].abs().sum() > 0
+    shards, banded = _launch(p, fields, lix, liy, k, banded=True)
+    solver_fused.banded_round(p, p.response_length - 3, k, banded, 0)
+    assert solver_fused.banded_round.launches == 0
+    assert shards[1][1].rec[-3:].abs().sum() > 0
+    with pytest.raises(ValueError, match="B6"):
+        solver_fused.sharded_round(p, 0, k, banded, 0)
+    with pytest.raises(ValueError, match="B5"):
+        solver_fused.banded_round(p, 0, k, launch, 0)
     with pytest.raises(ValueError, match="t0"):
-        solver_fused.sharded_round(p, p.response_length, k, k, 0, pulse,
-                                   t(8, bx + 2 * k, by), state, acc, rec)
+        solver_fused.sharded_round(p, p.response_length, k, launch, 0)
+    with pytest.raises(ValueError, match="parity"):
+        solver_fused.sharded_round(p, 0, k, launch, 2)
+    with pytest.raises(ValueError, match="halo"):
+        solver_fused.sharded_round(p, 0, k + 1, launch, 0)
+    meta = solver_fused.RoundLaunch(p, launch.regions, k, k, False, k,
+                                    fields[2].to("meta"), lix, liy, (8, 8))
+    with pytest.raises(ValueError, match="meta"):
+        solver_fused.sharded_round(p, 0, k, meta, 0)
 
 
-def test_pick_round_tile():
-    """On a 132-SM card: 16 x 16 tiles on the headline's 96^2 shards (36
-    blocks; 32 x 32 would run 9), 32 x 32 on the 126 m world's 482^2
-    shards, and every pick fits the shared memory."""
-    assert solver_fused.pick_round_tile(96, 96, 16, 132) == (16, 16)
-    assert solver_fused.pick_round_tile(482, 482, 16, 132) == (32, 32)
-    assert solver_fused.pick_round_tile(48, 192, 16, 132) == (16, 16)
-    for k in (1, 8, 16, 32):
-        tile = solver_fused.pick_round_tile(482, 482, k, 132)
-        assert solver_fused.round_smem_bytes(tile, k) <= \
-            solver_fused.SMEM_BYTES
+def test_pick_region_tile():
+    """On a 132-SM card a round launch takes B3's tile (20 x 52 or 20 x
+    20 at B3's border, ``fdtd_tiled.pick_tile``) with the fewest waves of
+    windows over all of its regions: 20 x 52 for the headline's four 128^2
+    extended blocks (84 tiles; 20 x 20 would take two waves of 196), the
+    126 m world's four 514^2 and the split's eight 48-row frames of 126 m;
+    20 x 20 where one wave of either suffices (a 224 x 192 block, a 32^2
+    one)."""
+    def pick(blocks):
+        return fdtd_tiled.pick_tile(blocks, fdtd_tiled.HALO, 132)
+
+    assert pick([(128, 128)] * 4) == (20, 52)
+    assert pick([(514, 514)] * 4) == (20, 52)
+    assert pick([(48, 996)] * 8) == (20, 52)
+    assert pick([(224, 192)]) == (20, 20)
+    assert pick([(32, 32)]) == (20, 20)
+    for tile in ((20, 52), (20, 20)):
+        assert tile in fdtd_tiled.TILES
 
 
 def test_sharded_errors(room):

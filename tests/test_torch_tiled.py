@@ -208,12 +208,12 @@ def test_pick_tile():
     steps 2 and 8 windows of 32 x 64; 20 x 20 on the small grids, where
     20 x 52 tiles would leave most SMs idle."""
     assert fdtd_tiled.TILES == ((20, 52), (20, 20)) and fdtd_tiled.HALO == 6
-    picks = {n: fdtd_tiled.pick_tile(n, n, fdtd_tiled.HALO, 132)
+    picks = {n: fdtd_tiled.pick_tile([(n, n)], fdtd_tiled.HALO, 132)
              for n in (192, 261, 459, 964)}
     assert picks == {192: (20, 20), 261: (20, 52), 459: (20, 52),
                      964: (20, 52)}
-    assert fdtd_tiled.pick_tile(29, 29, 6, 132) == (20, 20)
-    assert fdtd_tiled.pick_tile(964, 964, 6, 1) == (20, 52)
+    assert fdtd_tiled.pick_tile([(29, 29)], 6, 132) == (20, 20)
+    assert fdtd_tiled.pick_tile([(964, 964)], 6, 1) == (20, 52)
 
 
 @pytest.mark.parametrize("tile,k,shape", [
