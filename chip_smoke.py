@@ -25,7 +25,20 @@ line per phase:
      seam between two blocks' strips, and on grids whose strips start
      mid-row (SmallRoom at 275 Hz, a thin open field) in float32 and bf16,
      with listeners at and around a block's first cell;
-  4. B2 ``rt60_moments`` against its plain version on that recording;
+  4. B2 ``rt60_moments`` (csrc/moments.cu) against its plain version,
+     bit for bit: on that recording, on a 29 x 29 recording of 37 steps
+     (rows not 16-byte aligned, a short last chunk; and a view starting
+     mid-word), on a bf16 recording, on four listeners' recordings
+     (``rt60_moments_batch``) and on one table over the 2x2 and 4x1
+     meshes' shards (``rt60_moments_many``, one launch); its device times
+     with the host enqueue hidden behind a sleep kernel: back to back,
+     right after B1 and after an L2 flush, in turns against the
+     thread-a-cell design it replaced, bf16, B = 4 and the 2x2 shards in
+     one table against four launches; the probe's designs (the kernel,
+     thread-a-cell, the logarithms spread over a 128-thread block) in its
+     modes (everything, no logarithms, no loads); and a logarithm's
+     instructions counted in the SASS (cuobjdump) with the floor their
+     instruction slots set;
   5. the engine's main path: ``Context(device="cuda")`` at the headline
      size, three emitters, five ``step()`` calls, with the kernels' launch
      counts, the card's launches in one more step and the step times;
@@ -54,7 +67,8 @@ line per phase:
      ``simulate_moments_sharded`` at the headline on 2x2, 4x1 and 1x1 meshes
      of the one card (halo 16: 96^2 shards and 75 rounds on 2x2, so 75
      launches a pass), all nine outputs held to B1 + B2 and to the plain
-     sharded path on the card, the pass timed against B1 + B2 and the 2x2
+     sharded path on the card (one B2 launch over the shards' recordings),
+     the pass timed against B1 + B2 and the 2x2
      simulation against its plain version, with its host enqueue and the
      card's launches; on 2x2 also the forced slab path (every neighbour
      read through a ghost buffer, the path of neighbours on other cards),
@@ -69,7 +83,8 @@ line per phase:
      its grids equal to the single-device Context's; then the 126 m world
      on the same mesh, cells publish, three steps, its emitter rows equal to
      phase 9's; launch counts (set to 0 just before each part: one round
-     launch per round), step times and peak device memory;
+     launch per round, one B2 launch a step), step times and peak device
+     memory;
  14. B1/B2's batched mode: ``fdtd_sim_batch`` and ``rt60_moments_batch``
      at the headline with four listeners (the headline's and the three
      emitter positions), held to their plain versions and to four
@@ -98,8 +113,8 @@ line per phase:
      then the main path ``Context(mesh=4x1)``, which takes the split: the
      headline with one and two views (grids equal the single-device
      Context's) and the 126 m world with cells publish (rows equal phase
-     9's), launch counts (two round launches a round) set to 0 before each
-     part.
+     9's), launch counts (two round launches a round, one B2 launch a
+     step) set to 0 before each part.
 
 Every main path's step is followed by one more with the card's launches of
 each kernel counted (``kernels.device_launches``, zeroed just before it).
@@ -174,6 +189,14 @@ F32_OPS_PER_S = 67e12
 # moments (the JAX kernels' pl.CostEstimate: 40 flops; 8 flops and a log)
 SIM_OPS = 40
 MOMENTS_OPS = 9
+# the sleep a timed call waits behind (torch.cuda._sleep cycles, ~2.5 ms),
+# so a device time leaves out the call's host enqueue; an L2 flush (the
+# card's L2 is 50 MB) for the moments timed cold
+SLEEP_CYCLES = 5_000_000
+FLUSH_BYTES = 256 << 20
+# B2's probe: the card's schedulers an SM (each a warp instruction a
+# cycle), for the floor of the instructions its SASS counts
+SCHEDULERS_PER_SM = 4
 
 
 def _require(cond, msg) -> None:
@@ -276,6 +299,67 @@ def _cuda_ms(fn, reps):
     return statistics.median(_once(fn)[0] for _ in range(reps))
 
 
+def _device_ms(fn, reps, before=None):
+    """CUDA-event median (ms) of fn's device work alone, after one warm-up
+    call: each call is queued behind a sleep kernel, so its host enqueue is
+    hidden, and ``before`` (B1, an L2 flush) runs between the sleep and
+    the first event."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        if before is not None:
+            before()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    return statistics.median(times)
+
+
+def _device_pair(fn_a, fn_b, reps):
+    """:func:`_device_ms` medians of fn_a and fn_b taken in turns (a, b, b,
+    a, ...)."""
+    times = ([], [])
+    for r in range(reps):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            times[i].append(_device_ms((fn_a, fn_b)[i], 1))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def _sass_loops(kernels, lib_path, names):
+    """{name: [instructions of each loop body]} of the library's kernels
+    whose mangled names hold each of ``names``, from cuobjdump's SASS: a
+    loop is a backward branch, its body the instructions it spans (loops
+    of fewer than 64 are left out)."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    loops, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            if fn is not None:
+                loops[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?BRA\s+"
+                      r"(?:U?P\w+,\s*)?(0x[0-9a-f]+)", ln)
+        if fn is not None and m:
+            src, dst = int(m.group(1), 16), int(m.group(2), 16)
+            if dst < src and (src - dst) // 16 + 1 >= 64:
+                loops[fn].append((src - dst) // 16 + 1)
+    return loops
+
+
 def _kernel_ms(fn, name):
     """(device ms, launches) of the kernels whose name holds ``name`` in one
     call of fn, from a torch.profiler trace of the card (after a warm-up
@@ -372,13 +456,30 @@ ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
               "source_directivity", "delay_samples")
 
 
-# kernel names and template arguments as they appear in ptxas's mangled
-# entry names
+# kernel names as they appear in ptxas's mangled entry names
 _KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel", "rt60_moments_kernel",
+            "rt60_moments_direct_kernel", "rt60_moments_spread_kernel",
             "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel")
-_TEMPLATE_ARGS = (("I13__nv_bfloat16E", "<bf16>"), ("IfE", "<float>"),
-                  ("ILi4ELb1EE", "<4, true>"), ("ILi4ELb0EE", "<4, false>"),
-                  ("ILb1EE", "<true>"), ("ILb0EE", "<false>"))
+
+
+def _template_args(tail):
+    """'<float, 0>' from a mangled entry's template arguments ('IfLi0EE...'):
+    types float and bf16, integers and booleans; '' where it has none."""
+    import re
+
+    if not tail.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(tail) and tail[i] != "E":
+        m = re.match(r"13__nv_bfloat16|f|Li(-?\d+)E|Lb([01])E", tail[i:])
+        if m is None:
+            return ""
+        tok = m.group(0)
+        args.append("bf16" if tok.startswith("13") else "float" if tok == "f"
+                    else m.group(1) if m.group(1) is not None
+                    else ("true" if m.group(2) == "1" else "false"))
+        i += len(tok)
+    return "<" + ", ".join(args) + ">"
 
 
 def _ptxas_summary(log):
@@ -389,9 +490,7 @@ def _ptxas_summary(log):
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             base = next((k for k in _KERNELS if k in mangled), mangled)
-            tail = mangled.split(base, 1)[-1]
-            name = base + next((a for m, a in _TEMPLATE_ARGS
-                                if tail.startswith(m)), "")
+            name = base + _template_args(mangled.split(base, 1)[-1])
         elif "spill stores" in ln and name:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
             out.append([name, spill])
@@ -415,6 +514,212 @@ def _device_pass(kernels, fn):
     torch.cuda.synchronize()
     return {k: v for k, v in kernels.device_launches(reset=True).items()
             if v}
+
+
+def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
+                   kres, label):
+    """Phase 4: B2 (``rt60_moments`` and its table launch) held bit for bit
+    to its plain version on the headline recording, a 29 x 29 recording of
+    37 steps (rows not 16-byte aligned, a short last chunk), a bf16
+    recording, four listeners' recordings and one table over the 2x2 and
+    4x1 meshes' shards; its device times warm (right after B1) and cold
+    (after an L2 flush), against the thread-a-cell design it replaced in
+    turns, the probe's designs and modes, and the SASS count of a
+    logarithm. Returns the numbers the kernels line takes."""
+    import torch
+
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import fdtd_fused, voxelize
+
+    dev = beta.device
+    T = p.response_length
+    rec, onset = kres.pressure, kres.onset
+    ref = fdtd_fused.rt60_moments_reference
+
+    def equal(q, got, recs, onsets):
+        return all(torch.equal(g0, r0) and torch.equal(g1, r1)
+                   for (g0, g1), (r0, r1) in zip(
+                       got, (ref(q, r, o) for r, o in zip(recs, onsets))))
+
+    # the headline, float32
+    s0, s1 = fdtd_fused.rt60_moments(p, rec, onset)
+    r0, r1 = ref(p, rec, onset)
+    torch.cuda.synchronize()
+    err = {"s0": _rel(s0, r0), "s1": _rel(s1, r1)}
+    for name, (rel, _) in err.items():
+        _require(rel <= MOMENTS_REL_TOL, f"B2 {name}: rel {rel}")
+    bits = {"headline": torch.equal(s0, r0) and torch.equal(s1, r1)}
+    _require(torch.isfinite(s0).all() and (s0 != 0).any(),
+             "B2 moments not finite or all zero")
+    # 29 x 29 cells (rows of 3364 bytes: not 16-byte aligned) and 37 steps
+    # (chunks of 16 rows: a short last one); and a view that starts mid-word
+    small = pv.compute_grid_params(pv.PlaneverbConfig(10.0, 10.0, 275))
+    q = dataclasses.replace(small, response_length=37)
+    sb, sr = voxelize.voxelize(q, torch.from_numpy(voxelize.boxes_to_array(
+        pv.demo_scene("SmallRoom").boxes)).to(dev))
+    spulse = torch.from_numpy(gaussian_pulse(q)).to(dev)
+    sres, _ = fdtd_fused.fdtd_sim(q, sb, sr, spulse,
+                                  *q.world_to_cell(5.0, 5.0))
+    srec = sres.pressure
+    _require(srec.shape[1] * srec.shape[2] * 4 % 16 != 0,
+             "the small recording's rows are aligned")
+    shifted = torch.empty(srec.numel() + 1, device=dev)[1:].view(srec.shape)
+    shifted.copy_(srec)
+    got = fdtd_fused.rt60_moments_many(q, [srec, shifted],
+                                       [sres.onset, sres.onset])
+    torch.cuda.synchronize()
+    bits["29x29x37 unaligned"] = equal(q, got, [srec, shifted],
+                                       [sres.onset, sres.onset])
+    # a bf16 recording
+    hres, _ = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy,
+                                  state_dtype=torch.bfloat16)
+    got = [fdtd_fused.rt60_moments(p, hres.pressure, hres.onset)]
+    torch.cuda.synchronize()
+    bits["bf16"] = equal(p, got, [hres.pressure], [hres.onset])
+    # four listeners (the batched mode)
+    vcells = [p.world_to_cell(x, z) for x, z in VIEWS]
+    bres, _ = fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells)
+    k0, k1 = fdtd_fused.rt60_moments_batch(p, bres.pressure, bres.onset)
+    rb0, rb1 = ref(p, bres.pressure, bres.onset)
+    torch.cuda.synchronize()
+    bits["B = 4"] = torch.equal(k0, rb0) and torch.equal(k1, rb1)
+    del rb0, rb1
+    # one table over the 2x2 mesh's 96 x 96 and the 4x1 mesh's 48 x 192
+    # shards' recordings, as the sharded engine's launch takes them
+    cuts = ([(slice(a, a + p.nx // 2), slice(b, b + p.ny // 2))
+             for a in (0, p.nx // 2) for b in (0, p.ny // 2)]
+            + [(slice(a, a + p.nx // 4), slice(0, p.ny))
+               for a in range(0, p.nx, p.nx // 4)])
+    srecs = [rec[:, a, b].contiguous() for a, b in cuts]
+    sons = [onset[a, b].contiguous() for a, b in cuts]
+    fdtd_fused.reset_launch_counts()
+    kernels.device_launches(reset=True)
+    got = fdtd_fused.rt60_moments_many(p, srecs, sons)
+    torch.cuda.synchronize()
+    table_launches = kernels.device_launches(reset=True)
+    _require(table_launches["rt60_moments_kernel"] == 1
+             and fdtd_fused.rt60_moments_many.launches == 1,
+             f"the shards' table is one launch: {table_launches}")
+    bits["2x2 + 4x1 shards, one table"] = equal(p, got, srecs, sons)
+    table_err = {}
+    for (g0, g1), r, o in zip(got, srecs, sons):
+        r0, r1 = ref(p, r, o)
+        for name, a, b in (("s0", g0, r0), ("s1", g1, r1)):
+            rel, diff = _rel(a, b)
+            old_rel, old_diff = table_err.get(name, (0.0, 0.0))
+            table_err[name] = (max(rel, old_rel), max(diff, old_diff))
+    # the probe's other designs, everything on
+    for design in fdtd_fused.MOMENTS_PROBE_DESIGNS[1:]:
+        got = fdtd_fused.rt60_moments_probe(p, [rec], [onset], design)
+        torch.cuda.synchronize()
+        bits[f"probe {design}"] = equal(p, got, [rec], [onset])
+    _require(all(bits.values()), f"B2 not bit-equal: {bits}")
+    del got
+
+    # device times (host enqueue hidden); warm: right after B1, whose last
+    # rows B2 reads first; cold: after an L2 flush
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def b2():
+        fdtd_fused.rt60_moments(p, rec, onset)
+
+    out = {"err": err, "table_err": table_err, "bits": bits}
+    out["ms"] = _device_ms(b2, 10)
+    out["warm_ms"] = _device_ms(b2, 6, before=lambda: fdtd_fused.fdtd_sim(
+        p, beta, refl, pulse, lix, liy))
+    out["cold_ms"] = _device_ms(b2, 10, before=lambda: flush.zero_())
+    out["call_ms"] = _cuda_ms(b2, 10)      # host enqueue included
+    out["vs_direct"] = _device_pair(
+        b2, lambda: fdtd_fused.rt60_moments_probe(p, [rec], [onset],
+                                                  "direct"), 10)
+    out["plain_ms"] = _once(lambda: ref(p, rec, onset))[0]
+    out["bf16_ms"] = _device_ms(lambda: fdtd_fused.rt60_moments(
+        p, hres.pressure, hres.onset), 10)
+    out["bf16_cold_ms"] = _device_ms(lambda: fdtd_fused.rt60_moments(
+        p, hres.pressure, hres.onset), 10, before=lambda: flush.zero_())
+    out["bf16_plain_ms"] = _once(lambda: ref(p, hres.pressure,
+                                             hres.onset))[0]
+    out["batch_ms"] = _device_ms(lambda: fdtd_fused.rt60_moments_batch(
+        p, bres.pressure, bres.onset), 6)
+    out["batch_cold_ms"] = _device_ms(lambda: fdtd_fused.rt60_moments_batch(
+        p, bres.pressure, bres.onset), 6, before=lambda: flush.zero_())
+    out["batch_plain_ms"] = _once(lambda: ref(p, bres.pressure,
+                                              bres.onset))[0]
+    mesh22 = (srecs[:4], sons[:4])
+    out["table_ms"], out["singles_ms"] = _device_pair(
+        lambda: fdtd_fused.rt60_moments_many(p, *mesh22),
+        lambda: [fdtd_fused.rt60_moments(p, r, o) for r, o in zip(*mesh22)],
+        10)
+    out["table_cold_ms"] = _device_ms(
+        lambda: fdtd_fused.rt60_moments_many(p, *mesh22), 10,
+        before=lambda: flush.zero_())
+    out["table_plain_ms"] = _once(
+        lambda: fdtd_fused.rt60_moments_many_reference(p, *mesh22))[0]
+    # the probe: each design in each mode, float32 and bf16
+    probe = {}
+    for dt, (prec, pons) in (("f32", (rec, onset)),
+                             ("bf16", (hres.pressure, hres.onset))):
+        for design in fdtd_fused.MOMENTS_PROBE_DESIGNS:
+            times = []
+            for mode in fdtd_fused.MOMENTS_PROBE_MODES:
+                times.append(_device_ms(
+                    lambda: fdtd_fused.rt60_moments_probe(
+                        p, [prec], [pons], design, mode), 6))
+            probe[f"{dt} {design}"] = "/".join(f"{t:.4f}" for t in times)
+    del bres, hres, srecs, sons, flush
+    torch.cuda.empty_cache()
+    # the SASS: a logarithm's instructions, the main loop's body (one chunk
+    # of the aligned rows, its shortest loop) less the same loop without
+    # logarithms, over the chunk's rows; the direct design's loop likewise
+    loops = _sass_loops(kernels, lib_path, (
+        "rt60_moments_kernelIfLi0E", "rt60_moments_kernelIfLi1E",
+        "rt60_moments_direct_kernelIfLi0E",
+        "rt60_moments_direct_kernelIfLi1E"))
+    chunk = fdtd_fused.MOMENTS_CHUNK
+    body, body_nolog, dbody, dbody_nolog = (
+        min(loops[k]) for k in ("rt60_moments_kernelIfLi0E",
+                                "rt60_moments_kernelIfLi1E",
+                                "rt60_moments_direct_kernelIfLi0E",
+                                "rt60_moments_direct_kernelIfLi1E"))
+    per_log = (body - body_nolog) / chunk
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    samples = T * p.nx * p.ny
+    slots = sms * SCHEDULERS_PER_SM * 32 * mhz * 1e6     # lanes a second
+    out["log_floor_ms"] = samples * per_log / slots * 1e3
+    out["loop_floor_ms"] = samples * body / chunk / slots * 1e3
+    bound = _moments_bound(p)[0]
+    print(f"phase 4 B2 rt60_moments {p.nx}x{p.ny}x{T}: max rel diff "
+          + ", ".join(f"{k} {v[0]:.3g}" for k, v in err.items())
+          + f" (bound {MOMENTS_REL_TOL:g}); bit-equal to its plain version "
+          f"on {bits}; the 8 shards' table: device launches "
+          f"{ {k: v for k, v in table_launches.items() if v} }", flush=True)
+    print(f"phase 4 B2 times (device, host enqueue hidden; {label}): "
+          f"float32 {out['ms']:.4f} ms back to back, {out['warm_ms']:.4f} "
+          f"right after B1, {out['cold_ms']:.4f} after an L2 flush (byte "
+          f"bound {bound:.4f}, {bound / out['ms']:.0%}); with the host "
+          f"enqueue {out['call_ms']:.4f}; in turns with the thread-a-cell "
+          f"design {out['vs_direct'][0]:.4f} vs {out['vs_direct'][1]:.4f}; "
+          f"bf16 {out['bf16_ms']:.4f} / cold {out['bf16_cold_ms']:.4f} (byte "
+          f"bound {_moments_bound(p, rec_bytes=2)[0]:.4f}); B = 4 "
+          f"{out['batch_ms']:.4f} / cold {out['batch_cold_ms']:.4f} (bound "
+          f"{_moments_bound(p, 4)[0]:.4f}); the 2x2 shards in one table "
+          f"{out['table_ms']:.4f} / cold {out['table_cold_ms']:.4f} vs four "
+          f"launches {out['singles_ms']:.4f} (in turns); plain "
+          f"{out['plain_ms']:.3f} / bf16 {out['bf16_plain_ms']:.3f} / B = 4 "
+          f"{out['batch_plain_ms']:.3f} / table {out['table_plain_ms']:.3f}",
+          flush=True)
+    print(f"phase 4 B2 probe, device ms full/no_log/no_load: {probe}; SASS: "
+          f"main loop {body} instructions a chunk of {chunk} rows ({body_nolog}"
+          f" without logarithms: {per_log:.1f} a logarithm, fmax and scale "
+          f"included), the thread-a-cell loop {dbody} ({dbody_nolog}) for 8; "
+          f"instruction-slot floor at {mhz:.0f} MHz on {sms} SMs: the "
+          f"logarithms {out['log_floor_ms']:.4f} ms, the main loop "
+          f"{out['loop_floor_ms']:.4f} ms", flush=True)
+    return out
 
 
 def _strip_start_cells(nx, ny, rank):
@@ -487,6 +792,16 @@ def _across_cards(pv, kernels, dev, card) -> None:
             per_round = 2 if overlap else 1
             _require(wrapper == rounds * per_round * m,
                      f"{shape} overlap {overlap}: {wrapper} round launches")
+            # the moments: one B2 launch per card over its shard (B5), or
+            # one B4 launch a shard (B6)
+            b2 = size == HEADLINE["size"]
+            moments = {"rt60_moments_kernel" if b2
+                       else "rt60_moments_tiled_kernel": m}
+            _require({k: launched.get(k, 0) for k in moments} == moments
+                     and fdtd_fused.rt60_moments_many.launches
+                     == (m if b2 else 0),
+                     f"{shape} overlap {overlap}: moments launches "
+                     f"{launched}")
             got = {k: v[..., :q.nx, :q.ny]
                    for k, v in res.assemble(dev)._asdict().items()}
             got.update({k: v[:q.nx, :q.ny]
@@ -706,23 +1021,12 @@ def main() -> int:
           f"{b1_step_enq:.3f} ms; plain {b1_plain_ms:.3f} ms ({label})",
           flush=True)
 
-    # -- 4. B2 vs its plain version, on the kernel's recording
-    s0, s1 = fdtd_fused.rt60_moments(p, kres.pressure, kres.onset)
-    r0, r1 = fdtd_fused.rt60_moments_reference(p, kres.pressure, kres.onset)
-    torch.cuda.synchronize()
-    b2 = {"s0": _rel(s0, r0), "s1": _rel(s1, r1)}
-    b2_bits = torch.equal(s0, r0) and torch.equal(s1, r1)
-    for name, (rel, _) in b2.items():
-        _require(rel <= MOMENTS_REL_TOL, f"B2 {name}: rel {rel}")
-    b2_ms, b2_plain_ms = _time_pair(
-        lambda: fdtd_fused.rt60_moments(p, kres.pressure, kres.onset),
-        lambda: fdtd_fused.rt60_moments_reference(p, kres.pressure,
-                                                  kres.onset), reps=4)
-    print(f"phase 4 B2 rt60_moments {shape}: max rel diff "
-          + ", ".join(f"{k} {v[0]:.3g}" for k, v in b2.items())
-          + f" (bound {MOMENTS_REL_TOL:g}); bit-equal {b2_bits}; kernel "
-          f"{b2_ms:.3f} ms vs plain "
-          f"{b2_plain_ms:.3f} ms ({label})")
+    # -- 4. B2 vs its plain version on the kernel's recording and the other
+    # shapes the engine gives it; device times, the probe's designs and
+    # modes, and the SASS count of a logarithm
+    b2r = _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix,
+                         liy, kres, label)
+    b2, b2_ms, b2_plain_ms = b2r["err"], b2r["ms"], b2r["plain_ms"]
 
     # -- 5. the main path: Context on the card
     fdtd_fused.reset_launch_counts()
@@ -1130,12 +1434,13 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = {"sharded_round": solver_fused.sharded_round.launches,
                   "banded_round": solver_fused.banded_round.launches,
-                  "rt60_moments": fdtd_fused.rt60_moments.launches}
-        n_shards = mshape[0] * mshape[1]
+                  "rt60_moments": fdtd_fused.rt60_moments.launches,
+                  "rt60_moments_many": fdtd_fused.rt60_moments_many.launches}
         rounds = -(-p.response_length // SHARD_HALO)
-        # one launch per device and round: every shard is on cuda:0
-        _require(counts == {"sharded_round": rounds,
-                            "banded_round": 0, "rt60_moments": n_shards},
+        # one launch per device and round, and one B2 launch per device
+        # over its shards' recordings: every shard is on cuda:0
+        _require(counts == {"sharded_round": rounds, "banded_round": 0,
+                            "rt60_moments": 0, "rt60_moments_many": 1},
                  f"B5 {mshape} launches {counts}")
         _require(all(torch.isfinite(v).all() for k, v in got.items()
                      if k != "onset"), f"B5 {mshape}: not finite")
@@ -1170,6 +1475,13 @@ def main() -> int:
             row["device"] = _device_pass(
                 kernels, lambda: parallel.simulate_sharded_fused(
                     *margs, halo=SHARD_HALO))
+            row["device_moments"] = _device_pass(
+                kernels, lambda: parallel.simulate_moments_sharded(
+                    *margs, halo=SHARD_HALO))
+            _require(row["device_moments"] == {"round_kernel B5": rounds,
+                                               "rt60_moments_kernel": 1},
+                     f"B5 {mshape} pass with moments device launches "
+                     f"{row['device_moments']}")
             row["busy"] = _kernel_ms(lambda: parallel.simulate_sharded_fused(
                 *margs, halo=SHARD_HALO), "round_kernel")
             _require(row["device"] == {"round_kernel B5": rounds},
@@ -1199,7 +1511,8 @@ def main() -> int:
               f"{row['b1b2_ms']:.3f} ms"
               + (f"; simulation {row['ms']:.3f} ms vs its plain version "
                  f"{row['plain_ms']:.3f} ms, host enqueue "
-                 f"{row['enq']:.3f} ms; device launches {row['device']}; "
+                 f"{row['enq']:.3f} ms; device launches {row['device']}, "
+                 f"with the moments {row['device_moments']}; "
                  f"round kernels busy {busy(row['busy'])}; "
                  f"forced slab path bit-equal {row['slab_bits']}, "
                  f"{row['slab_ms']:.3f} ms vs direct {row['direct_ms']:.3f}"
@@ -1302,18 +1615,20 @@ def main() -> int:
     m_launches = {k: f.launches for k, f in (
         ("fdtd_sim", fdtd_fused.fdtd_sim),
         ("rt60_moments", fdtd_fused.rt60_moments),
+        ("rt60_moments_many", fdtd_fused.rt60_moments_many),
         ("sharded_round", solver_fused.sharded_round),
         ("banded_round", solver_fused.banded_round),
         ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
         ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
     rounds = -(-p.response_length // mctx._halo)
-    _require(m_launches == {"fdtd_sim": 1, "rt60_moments": 4 * STEPS,
+    _require(m_launches == {"fdtd_sim": 1, "rt60_moments": 0,
+                            "rt60_moments_many": STEPS,
                             "sharded_round": rounds * STEPS,
                             "banded_round": 0, "fdtd_sim_tiled": 0,
                             "rt60_moments_tiled": 0}, m_launches)
     m_step = _device_pass(kernels, mctx.step)
     _require(m_step == {"round_kernel B5": rounds,
-                        "rt60_moments_kernel": 4},
+                        "rt60_moments_kernel": 1},
              f"2x2 mesh step device launches {m_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
     one.set_listener_position(lx, 0.0, lz)
@@ -1350,13 +1665,14 @@ def main() -> int:
     xm_launches = {k: f.launches for k, f in (
         ("fdtd_sim", fdtd_fused.fdtd_sim),
         ("rt60_moments", fdtd_fused.rt60_moments),
+        ("rt60_moments_many", fdtd_fused.rt60_moments_many),
         ("sharded_round", solver_fused.sharded_round),
         ("banded_round", solver_fused.banded_round),
         ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
         ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
     xrounds = -(-xp.response_length // xm._halo)
     _require(xm_launches == {"fdtd_sim": 1, "rt60_moments": 0,
-                             "sharded_round": 0,
+                             "rt60_moments_many": 0, "sharded_round": 0,
                              "banded_round": xrounds * XL_STEPS,
                              "fdtd_sim_tiled": 0,
                              "rt60_moments_tiled": 4 * XL_STEPS},
@@ -1575,14 +1891,15 @@ def main() -> int:
     mv = pv.Context(cfg, scene=scene, mesh=mesh4)
     mv.set_listener_positions(positions[:MESH_VIEWS])
     mvev, mvwall = zip(*(_once(mv.step) for _ in range(STEPS)))
-    mv_launches = counts_of(*sim_fns, solver_fused.sharded_round,
+    mv_launches = counts_of(*sim_fns, fdtd_fused.rt60_moments_many,
+                            solver_fused.sharded_round,
                             solver_fused.banded_round)
     mhalo = mv._halo
     mrounds = -(-p.response_length // mhalo)
     _require(mv_launches == {
-        "fdtd_sim": 1, "fdtd_sim_batch": 0,
-        "rt60_moments": 4 * MESH_VIEWS * STEPS, "rt60_moments_batch": 0,
-        "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0,
+        "fdtd_sim": 1, "fdtd_sim_batch": 0, "rt60_moments": 0,
+        "rt60_moments_batch": 0, "fdtd_sim_tiled": 0,
+        "rt60_moments_tiled": 0, "rt60_moments_many": MESH_VIEWS * STEPS,
         "sharded_round": mrounds * MESH_VIEWS * STEPS,
         "banded_round": 0}, mv_launches)
     for k in mv._published.keys() - {"listener", "listeners"}:
@@ -1747,21 +2064,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     rounds = -(-p.response_length // SHARD_HALO)
     split_fns = (solver_fused.sharded_round, solver_fused.banded_round,
-                 fdtd_fused.rt60_moments, fdtd_tiled.rt60_moments_tiled)
+                 fdtd_fused.rt60_moments, fdtd_fused.rt60_moments_many,
+                 fdtd_tiled.rt60_moments_tiled)
     b5o = {}
     for mshape in OVERLAP_MESHES:
         fields, (mesh, nx_pad, ny_pad) = sharded_args(p, beta, refl, pulse,
                                                       mshape)
         margs = (*fields, lix, liy, mesh, nx_pad, ny_pad)
-        n_shards = mshape[0]
         fdtd_fused.reset_launch_counts()
         got = nine(*parallel.simulate_moments_sharded(
             *margs, halo=SHARD_HALO, overlap=True), p)
         torch.cuda.synchronize()
         counts = counts_of(*split_fns)
         _require(counts == {"sharded_round": rounds * 2,
-                            "banded_round": 0, "rt60_moments": n_shards,
-                            "rt60_moments_tiled": 0},
+                            "banded_round": 0, "rt60_moments": 0,
+                            "rt60_moments_many": 1, "rt60_moments_tiled": 0},
                  f"B5 split {mshape} launches {counts}")
         _require(all(torch.isfinite(v).all() for k, v in got.items()
                      if k != "onset"), f"B5 split {mshape}: not finite")
@@ -1838,7 +2155,7 @@ def main() -> int:
     counts = counts_of(*split_fns)
     _require(counts == {"sharded_round": 0,
                         "banded_round": xrounds * 2, "rt60_moments": 0,
-                        "rt60_moments_tiled": 4},
+                        "rt60_moments_many": 0, "rt60_moments_tiled": 4},
              f"B6 split launches {counts}")
     rec_bytes = q.nx * q.ny * q.response_length * 4
     _require(split_peak < 1.25 * rec_bytes,
@@ -1906,11 +2223,12 @@ def main() -> int:
     s_launches = counts_of(*ctx_fns)
     _require(s_launches == {"fdtd_sim": 1, "fdtd_sim_batch": 0,
                             "sharded_round": rounds * 2 * STEPS,
-                            "banded_round": 0, "rt60_moments": 4 * STEPS,
+                            "banded_round": 0, "rt60_moments": 0,
+                            "rt60_moments_many": STEPS,
                             "rt60_moments_tiled": 0}, s_launches)
     s_step = _device_pass(kernels, sctx.step)
     _require(s_step == {"round_kernel B5": rounds * 2,
-                        "rt60_moments_kernel": 4},
+                        "rt60_moments_kernel": 1},
              f"4x1 split step device launches {s_step}")
     one = pv.Context(cfg, scene=scene, device="cuda")
     one.set_listener_position(lx, 0.0, lz)
@@ -1932,7 +2250,8 @@ def main() -> int:
     _require(sv_launches == {
         "fdtd_sim": 1, "fdtd_sim_batch": 0,
         "sharded_round": rounds * 2 * MESH_VIEWS * 2, "banded_round": 0,
-        "rt60_moments": 4 * MESH_VIEWS * 2, "rt60_moments_tiled": 0},
+        "rt60_moments": 0, "rt60_moments_many": MESH_VIEWS * 2,
+        "rt60_moments_tiled": 0},
         sv_launches)
     for k in sv._published.keys() - {"listener", "listeners"}:
         np.testing.assert_array_equal(sv._published[k], vg[k][:MESH_VIEWS],
@@ -1963,7 +2282,8 @@ def main() -> int:
     _require(xs_launches == {
         "fdtd_sim": 1, "fdtd_sim_batch": 0, "sharded_round": 0,
         "banded_round": xrounds * 2 * XL_SPLIT_STEPS,
-        "rt60_moments": 0, "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
+        "rt60_moments": 0, "rt60_moments_many": 0,
+        "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
         xs_launches)
     xs_step = _device_pass(kernels, xs.step)
     _require(xs_step == {"round_kernel B6": xrounds * 2,
@@ -2016,9 +2336,13 @@ def main() -> int:
         row("fdtd_sim per-step", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             b1_step_launches, err_of(b1s), b1_step_ms, b1_plain_ms,
             _sim_bound(p), step_pass["fdtd_step_kernel"]),
-        row("rt60_moments", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
+        row("rt60_moments", "moments.cu", "ops/fdtd_pallas.py:246",
             launches["rt60_moments"], err_of(b2), b2_ms, b2_plain_ms,
             _moments_bound(p), hl_step["rt60_moments_kernel"]),
+        row("rt60_moments_many", "moments.cu",
+            "parallel/solver_pallas.py:1256", m_launches["rt60_moments_many"],
+            err_of(b2r["table_err"]), b2r["table_ms"], b2r["table_plain_ms"],
+            _moments_bound(p), m_step["rt60_moments_kernel"]),
         row("fdtd_sim_tiled", "fdtd_tiled.cu", "ops/fdtd_tiled.py:54",
             xl_launches["fdtd_sim_tiled"], b3_err, b3_large["ms"],
             b3_large["plain_ms"], _sim_bound(large),
@@ -2039,15 +2363,16 @@ def main() -> int:
         row("fdtd_sim_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             v_launches["fdtd_sim_batch"], err_of(b1b), b1b_ms, b1b_plain_ms,
             _sim_bound(p, nv), v_step["fdtd_cluster_kernel"]),
-        row("rt60_moments_batch", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
-            v_launches["rt60_moments_batch"], err_of(b2b), b2b_ms,
-            b2b_plain_ms, _moments_bound(p, nv),
+        row("rt60_moments_batch", "moments.cu", "ops/fdtd_pallas.py:246",
+            v_launches["rt60_moments_batch"], err_of(b2b), b2r["batch_ms"],
+            b2r["batch_plain_ms"], _moments_bound(p, nv),
             v_step["rt60_moments_kernel"]),
         row("fdtd_sim bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             h_launches["fdtd_sim"], err_of(b1h), b1h_ms, b1h_plain_ms,
             _sim_bound(p, state_bytes=2), h_step["fdtd_cluster_kernel"]),
-        row("rt60_moments bf16", "fdtd_fused.cu", "ops/fdtd_pallas.py:246",
-            h_launches["rt60_moments"], err_of(b2h), b2h_ms, b2h_plain_ms,
+        row("rt60_moments bf16", "moments.cu", "ops/fdtd_pallas.py:246",
+            h_launches["rt60_moments"], err_of(b2h), b2r["bf16_ms"],
+            b2r["bf16_plain_ms"],
             _moments_bound(p, rec_bytes=2), h_step["rt60_moments_kernel"]),
         row("B5 overlap", "solver_rounds.cu",
             "parallel/solver_pallas.py:550", b5o_launches,

@@ -1,4 +1,4 @@
-// Fused FDTD simulation (B1) and RT60 moments (B2) kernels for Hopper.
+// Fused FDTD simulation (B1) kernels for Hopper.
 //
 // B1 `fdtd_sim` replaces planeverb_tpu/ops/fdtd_pallas.py::_kernel, in all
 // its modes: one listener or B of them (`batched=True`), f32 or bf16 wave
@@ -65,23 +65,13 @@
 //   dependent loads and arithmetic of up to 2304 cells an SM on either side
 //   of a block barrier, and a cluster barrier each).
 //
-// B2 `rt60_moments` replaces planeverb_tpu/ops/fdtd_pallas.py::_moments_kernel
-// (one listener or B: blockIdx.y is the listener; f32 or bf16 recordings,
-// each sample upcast to float).
-//   One thread per cell walks its column of the recording from t = T-1 down
-//   to 0: suffix EDC += p^2, y = ln(max(EDC, 1e-37)) * 10/ln10, and
-//   s0 += y, s1 += (t - start) * y over [onset + dry_n + 1, T - schroeder_off).
-//   What bounds it: one read of the [T, nx, ny] recording (175 MB at the
-//   headline in f32, half that in bf16) plus one logf per element;
-//   neighbouring threads read neighbouring addresses, so the reads coalesce,
-//   and the unrolled loop keeps several independent loads in flight per
-//   thread.
+// B2 (the RT60 moments) lives in moments.cu; this file keeps the device
+// launch counters of the library's kernels (pv_device_launches).
 //
 // Numerics: built with -fmad=false and without fast math, every expression in
 // the order the plain PyTorch versions (ops/fdtd_fused.py) evaluate it, so
 // each op rounds once as PyTorch's elementwise kernels do. The +inf onset
-// sentinel and the 1e-37 EDC clamp rely on IEEE semantics (no FTZ, exact
-// logf). Recording offsets are 64-bit.
+// sentinel relies on IEEE semantics (no FTZ). Recording offsets are 64-bit.
 //
 // Launchers allocate nothing, never synchronise, count their launches
 // (common.cuh; this file holds the counters) and return cudaGetLastError()
@@ -558,37 +548,6 @@ fdtd_cluster_kernel(Fields<S> f, float* __restrict__ acc,
   }
 }
 
-template <typename S>
-__global__ void rt60_moments_kernel(const S* __restrict__ rec,
-                                    const float* __restrict__ onset,
-                                    float* __restrict__ s0_out,
-                                    float* __restrict__ s1_out,
-                                    int64_t n_cells, int T, float dry_n1,
-                                    float end, float log10_scale) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_cells) return;
-  const int64_t b = blockIdx.y;  // the listener
-  rec += b * T * n_cells;
-  const int64_t bc = b * n_cells + c;
-  const float start = onset[bc] + dry_n1;
-  float edc = 0.0f;
-  float s0 = 0.0f;
-  float s1 = 0.0f;
-#pragma unroll 8
-  for (int t = T - 1; t >= 0; --t) {
-    const float p = State<S>::load(rec, (int64_t)t * n_cells + c);
-    edc = edc + p * p;  // suffix sum including the current sample
-    const float y = logf(fmaxf(edc, 1e-37f)) * log10_scale;
-    const float tf = (float)t;
-    if (tf >= start && tf < end) {
-      s0 = s0 + y;
-      s1 = s1 + (tf - start) * y;
-    }
-  }
-  s0_out[bc] = s0;
-  s1_out[bc] = s1;
-}
-
 // Cells a block of the cluster mode owns, and its dynamic shared memory.
 int cluster_run(int nx, int ny) {
   return (int)(((int64_t)nx * ny + kCluster - 1) / kCluster);
@@ -729,27 +688,6 @@ extern "C" int pv_fdtd_cluster_occupancy(int nx, int ny, int bf16) {
     return -(int)e;
   }
   return clusters;
-}
-
-// rec: [B, T, nx, ny] (bf16 != 0: __nv_bfloat16, else float); onset, s0,
-// s1: [B, nx, ny] float.
-extern "C" int pv_rt60_moments(const void* rec, const float* onset,
-                               float* s0, float* s1, int nx, int ny, int T,
-                               int B, int bf16, float dry_n1, float end,
-                               float log10_scale, void* stream) {
-  const int64_t n_cells = (int64_t)nx * ny;
-  const int block = 128;
-  const dim3 grid((unsigned)((n_cells + block - 1) / block), B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    rt60_moments_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(rec), onset, s0, s1, n_cells, T,
-        dry_n1, end, log10_scale);
-  else
-    rt60_moments_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(rec), onset, s0, s1, n_cells, T, dry_n1,
-        end, log10_scale);
-  return pv::count_launch(pv::kRt60MomentsKernel);
 }
 
 long long* pv::device_launch_counts() {

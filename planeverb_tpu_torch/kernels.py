@@ -25,12 +25,13 @@ import tempfile
 import threading
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "DEVICE_KERNELS", "RoundSource",
-           "RoundRegion", "nvcc", "build", "library", "check",
-           "device_launches"]
+           "RoundRegion", "MomentsEntry", "nvcc", "build", "library",
+           "check", "device_launches"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("fdtd_fused.cu", "fdtd_tiled.cu", "solver_rounds.cu")
+_SOURCES = ("fdtd_fused.cu", "moments.cu", "fdtd_tiled.cu",
+            "solver_rounds.cu")
 # included by the sources: part of the build's tag
 _HEADERS = ("common.cuh", "windows.cuh")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -52,9 +53,13 @@ _SIGNATURES = {
     "pv_fdtd_sim": [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P],
     # nx, ny, bf16 -> clusters of B1's cluster mode the card holds at once
     "pv_fdtd_cluster_occupancy": [_I] * 3,
-    # rec, onset, s0, s1, nx, ny, T, B, bf16, dry_n + 1, end, log10_scale,
-    # stream
-    "pv_rt60_moments": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
+    # MomentsEntry table, entries, tiles, T, bf16, dry_n + 1, end,
+    # log10_scale, stream
+    "pv_rt60_moments": [_P] + [_I] * 4 + [_F] * 3 + [_P],
+    # the same, then the probe's design and mode (chip_smoke.py)
+    "pv_rt60_moments_probe": [_P] + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    # -> sizeof(Entry) in csrc/moments.cu
+    "pv_moments_entry_bytes": [],
     # beta, Y, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state slots,
     # grid-barrier words, nx, ny, T, tile_x, tile_y, k, lix, liy, gx, gy,
     # absorbing, courant, thr, src_dir_n, dry_n, wet_n, stream
@@ -99,6 +104,15 @@ class RoundRegion(ctypes.Structure):
                 ("kx", _I), ("ky", _I), ("bx", _I), ("by", _I),
                 ("orow", _I), ("rows", _I), ("oi", _I), ("oj", _I),
                 ("tile0", _I), ("tiles_y", _I)]
+
+
+class MomentsEntry(ctypes.Structure):
+    """csrc/moments.cu ``Entry``: one recording of a B2 launch, its onset,
+    its s0/s1 outputs, its cells, its first block in the launch and whether
+    every row starts 16-byte aligned."""
+    _fields_ = [("rec", _P), ("onset", _P), ("s0", _P), ("s1", _P),
+                ("cells", ctypes.c_longlong), ("tile0", _I), ("aligned", _I)]
+
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -191,6 +205,10 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"RoundRegion is {ctypes.sizeof(RoundRegion)} bytes, "
                     f"the library's Region {lib.pv_round_region_bytes()}")
+            if lib.pv_moments_entry_bytes() != ctypes.sizeof(MomentsEntry):
+                raise RuntimeError(
+                    f"MomentsEntry is {ctypes.sizeof(MomentsEntry)} bytes, "
+                    f"the library's Entry {lib.pv_moments_entry_bytes()}")
             _LIB = lib
         return _LIB
 

@@ -1,20 +1,27 @@
 """Fused FDTD simulation + RT60 moments: the two kernels of an engine step.
 
 Counterpart of ``planeverb_tpu/ops/fdtd_pallas.py``. Two kernels, each
-hand-written in CUDA (``csrc/fdtd_fused.cu``) with a plain PyTorch version
-of the same function, and a wrapper for one listener and one for B:
+hand-written in CUDA with a plain PyTorch version of the same function, and
+wrappers for one listener and for B:
 
   - B1 (replaces ``fdtd_pallas.py::_kernel``): all T FDTD steps, recording
     the pre-injection pressure, streaming the onset, the source-directivity
-    flux and the windowed energies. :func:`fdtd_sim` for one listener,
+    flux and the windowed energies, in ``csrc/fdtd_fused.cu``.
+    :func:`fdtd_sim` for one listener,
     :func:`fdtd_sim_batch` for B listeners in one pass (its ``batched``
     mode: the B listeners share the field planes). Up to
     :data:`CLUSTER_CELLS` cells a pass is one launch, a thread-block
     cluster a listener holding the field on chip for all T steps; above
     it, one launch a step (:func:`b1_mode`).
   - B2 (replaces ``fdtd_pallas.py::_moments_kernel``): one backward pass
-    over the recording for the RT60 regression moments.
-    :func:`rt60_moments`, :func:`rt60_moments_batch`.
+    over the recording for the RT60 regression moments, in
+    ``csrc/moments.cu``. :func:`rt60_moments` for one recording,
+    :func:`rt60_moments_batch` for B listeners', :func:`rt60_moments_many`
+    for any list of recordings on one device (a sharded pass's shards).
+    Each is one launch over a table of its recordings
+    (:func:`moments_table`): a warp streams a tile of
+    :data:`MOMENTS_TILE` cells through its ring in shared memory, a lane a
+    cell, and takes a chunk's logarithms as independent chains.
 
 ``state_dtype=torch.bfloat16`` is the half-precision wave-state mode of
 the TPU kernel: p/vx/vy, beta and the coefficient planes and the recording
@@ -40,6 +47,9 @@ error.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from planeverb_tpu_torch import kernels
@@ -56,9 +66,13 @@ from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
 
 __all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
            "fdtd_sim_reference", "fdtd_sim_per_step", "fdtd_sim_batch",
-           "fdtd_sim_batch_reference", "rt60_moments",
-           "rt60_moments_reference", "rt60_moments_batch",
-           "rt60_moments_batch_reference", "simulate_moments_fused",
+           "fdtd_sim_batch_reference", "MOMENTS_TILE", "MOMENTS_DIRECT_TILE",
+           "MOMENTS_CHUNK", "MOMENTS_MAX_ENTRIES", "MOMENTS_PROBE_DESIGNS",
+           "MOMENTS_PROBE_MODES", "MomentsRow",
+           "moments_table", "rt60_moments", "rt60_moments_reference",
+           "rt60_moments_batch", "rt60_moments_batch_reference",
+           "rt60_moments_many", "rt60_moments_many_reference",
+           "rt60_moments_probe", "simulate_moments_fused",
            "simulate_moments_fused_reference", "simulate_moments_fused_batch",
            "simulate_auto", "pipeline_auto", "pipeline_auto_batch",
            "reset_launch_counts", "TILED_MIN_CELLS"]
@@ -267,6 +281,57 @@ def fdtd_sim_per_step(params: GridParams, beta, refl, pulse, lix: int,
 
 
 # ------------------------------------------------------------- B2 moments
+# The card's B2 (csrc/moments.cu): a launch covers up to
+# MOMENTS_MAX_ENTRIES recordings; a one-warp block owns a tile of
+# MOMENTS_TILE consecutive cells of one of them. MOMENTS_DIRECT_TILE is the
+# block of the thread-a-cell design kept as a probe (rt60_moments_probe).
+MOMENTS_TILE = 32
+MOMENTS_DIRECT_TILE = 128
+# rows (time steps) of a chunk of the kernel's walk (csrc/moments.cu kChunk)
+MOMENTS_CHUNK = 16
+MOMENTS_MAX_ENTRIES = 64
+# the probe's designs (the kernel's, the thread-a-cell design it replaced,
+# and the logarithms spread over a 128-thread block) and modes (everything,
+# no logarithms: the loads and sums, no loads: the logarithms and sums on
+# samples made in registers)
+MOMENTS_PROBE_DESIGNS = ("warp", "direct", "spread")
+MOMENTS_PROBE_MODES = ("full", "no_log", "no_load")
+
+
+class MomentsRow(NamedTuple):
+    """One recording's place in a B2 launch: its first block, its blocks,
+    and whether every row of it starts 16-byte aligned."""
+    tile0: int
+    tiles: int
+    aligned: bool
+
+
+def moments_table(entries, tile: int = MOMENTS_TILE):
+    """The tiling of one B2 launch over recordings given as (cells,
+    element bytes, address of the first sample): the launch's blocks in
+    entry order, ``tile`` cells each, an entry's last block holding what is
+    left. Block b belongs to the last entry whose ``tile0`` is at or below
+    b (the kernel's lookup) and covers its cells [(b - tile0) * tile,
+    min(cells, (b - tile0 + 1) * tile)). An entry is aligned when its first
+    sample and its rows (cells x element bytes) are 16-byte aligned; the
+    kernel reads a row that is not from the 16-byte words covering it.
+    Returns ([MomentsRow], total blocks). Plain integers, no device."""
+    tile = int(tile)
+    if tile < 1:
+        raise ValueError(f"moments_table: tile {tile} must be >= 1")
+    rows, tile0 = [], 0
+    for cells, elem, addr in entries:
+        cells, elem, addr = int(cells), int(elem), int(addr)
+        if cells < 1 or elem < 1:
+            raise ValueError(f"moments_table: an entry of {cells} cells of "
+                             f"{elem} bytes")
+        tiles = -(-cells // tile)
+        rows.append(MomentsRow(tile0, tiles,
+                               addr % 16 == 0 and cells * elem % 16 == 0))
+        tile0 += tiles
+    return rows, tile0
+
+
 def rt60_moments_reference(params: GridParams, rec, onset):
     """Plain version of B2: a backward Python loop over the recording
     ([T, X, Y], or [B, T, X, Y] for B listeners; each sample read as
@@ -285,37 +350,96 @@ def rt60_moments_reference(params: GridParams, rec, onset):
 rt60_moments_batch_reference = rt60_moments_reference
 
 
-def _launch_moments(params: GridParams, rec, onset):
-    """B2 on [B, T, X, Y] recordings and [B, X, Y] onsets -> (err, s0, s1),
-    s0/s1 [B, X, Y]."""
-    B, T, nx, ny = rec.shape
-    rec = rec.contiguous()
-    onset = onset.contiguous()
-    s = torch.empty((2, B, nx, ny), dtype=torch.float32, device=rec.device)
+def rt60_moments_many_reference(params: GridParams, recs, onsets):
+    """Plain version of :func:`rt60_moments_many`: the plain B2 on each
+    recording in turn, on any device. Returns a list of (s0, s1)."""
+    return [rt60_moments_reference(params, r, o)
+            for r, o in zip(recs, onsets)]
+
+
+def _check_many(where: str, params: GridParams, recs, onsets):
+    recs, onsets = list(recs), list(onsets)
+    if not recs or len(recs) != len(onsets):
+        raise ValueError(f"{where}: need as many onsets as recordings (at "
+                         f"least one), got {len(recs)} and {len(onsets)}")
+    for r, o in zip(recs, onsets):
+        moments_shape(where, params, r, o, rec_dtypes=STATE_DTYPES)
+    if len({r.dtype for r in recs}) != 1:
+        raise ValueError(f"{where}: the recordings must share one type, got "
+                         f"{sorted({str(r.dtype) for r in recs})}")
+    return recs, onsets
+
+
+def _launch_moments(where: str, params: GridParams, recs, onsets,
+                    probe=None):
+    """B2 on the card over [T, X_i, Y_i] recordings of one type and their
+    [X_i, Y_i] onsets, one launch per :data:`MOMENTS_MAX_ENTRIES` of them.
+    ``probe``: (design, mode) of :func:`rt60_moments_probe`. Returns
+    (s, launches): s [2, sum of X_i * Y_i], each recording's s0 and s1 in
+    turn along the second axis."""
+    recs = [r.contiguous() for r in recs]
+    onsets = [o.contiguous() for o in onsets]
+    dev = recs[0].device
+    cells = [o.numel() for o in onsets]
+    s = torch.empty((2, sum(cells)), dtype=torch.float32, device=dev)
+    T = params.response_length
     dry_n1, end, log10_scale = moment_scalars(params)
+    bf16 = int(recs[0].dtype == torch.bfloat16)
+    tile = (MOMENTS_DIRECT_TILE if probe is not None and probe[0] == "direct"
+            else MOMENTS_TILE)
+    outs = _split(s, onsets)
     lib = kernels.library()
-    with torch.cuda.device(rec.device):
-        stream = torch.cuda.current_stream(rec.device).cuda_stream
-        err = lib.pv_rt60_moments(rec.data_ptr(), onset.data_ptr(),
-                                  s[0].data_ptr(), s[1].data_ptr(), nx, ny,
-                                  T, B, int(rec.dtype == torch.bfloat16),
-                                  dry_n1, end, log10_scale, stream)
-    return err, s[0], s[1]
+    launches = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g in range(0, len(recs), MOMENTS_MAX_ENTRIES):
+            part = range(g, min(g + MOMENTS_MAX_ENTRIES, len(recs)))
+            rows, tiles = moments_table(
+                [(cells[i], recs[i].element_size(), recs[i].data_ptr())
+                 for i in part], tile)
+            table = (kernels.MomentsEntry * len(rows))()
+            for e, (i, row) in enumerate(zip(part, rows)):
+                table[e] = kernels.MomentsEntry(
+                    recs[i].data_ptr(), onsets[i].data_ptr(),
+                    outs[i][0].data_ptr(), outs[i][1].data_ptr(), cells[i],
+                    row.tile0, int(row.aligned))
+            args = (ctypes.addressof(table), len(rows), tiles, T, bf16,
+                    dry_n1, end, log10_scale)
+            if probe is None:
+                err = lib.pv_rt60_moments(*args, stream)
+            else:
+                err = lib.pv_rt60_moments_probe(
+                    *args, MOMENTS_PROBE_DESIGNS.index(probe[0]),
+                    MOMENTS_PROBE_MODES.index(probe[1]), stream)
+            kernels.check(err, where)
+            launches += 1
+    return s, launches
+
+
+def _split(s, onsets):
+    """Each recording's (s0, s1) views of a launch's outputs."""
+    out, off = [], 0
+    for o in onsets:
+        c = o.numel()
+        out.append((s[0, off:off + c].view(o.shape),
+                    s[1, off:off + c].view(o.shape)))
+        off += c
+    return out
 
 
 @counted
 def rt60_moments(params: GridParams, rec, onset):
     """RT60 regression moments (s0, s1) of :class:`analyzer.Moments` from
     the [T, X, Y] recording (float32 or bf16) and the [X, Y] onset: the
-    whole field, or one shard of it (B2)."""
+    whole field, or one shard of it (B2). One launch on a card."""
     where = "rt60_moments"
-    moments_shape(where, params, rec, onset, rec_dtypes=STATE_DTYPES)
+    nx, ny = moments_shape(where, params, rec, onset,
+                           rec_dtypes=STATE_DTYPES)
     if not on_card(where, rec, onset):
         return rt60_moments_reference(params, rec, onset)
-    err, s0, s1 = _launch_moments(params, rec[None], onset[None])
-    kernels.check(err, where)
-    rt60_moments.launches += 1
-    return s0[0], s1[0]
+    s, n = _launch_moments(where, params, [rec], [onset])
+    rt60_moments.launches += n
+    return s[0].view(nx, ny), s[1].view(nx, ny)
 
 
 @counted
@@ -324,14 +448,54 @@ def rt60_moments_batch(params: GridParams, rec, onset):
     (float32 or bf16) and [B, X, Y] onsets -> (s0, s1), each [B, X, Y].
     Bit-equal to B :func:`rt60_moments` calls."""
     where = "rt60_moments_batch"
-    moments_shape(where, params, rec, onset, batched=True,
-                  rec_dtypes=STATE_DTYPES)
+    nx, ny = moments_shape(where, params, rec, onset, batched=True,
+                           rec_dtypes=STATE_DTYPES)
     if not on_card(where, rec, onset):
         return rt60_moments_batch_reference(params, rec, onset)
-    err, s0, s1 = _launch_moments(params, rec, onset)
-    kernels.check(err, where)
-    rt60_moments_batch.launches += 1
-    return s0, s1
+    s, n = _launch_moments(where, params, list(rec.unbind(0)),
+                           list(onset.unbind(0)))
+    rt60_moments_batch.launches += n
+    B = rec.shape[0]
+    return s[0].view(B, nx, ny), s[1].view(B, nx, ny)
+
+
+@counted
+def rt60_moments_many(params: GridParams, recs, onsets):
+    """B2 over several recordings of one device at once (the shards a
+    device holds in a sharded pass): ``recs`` [T, X_i, Y_i] recordings of
+    one type (float32 or bf16), ``onsets`` their [X_i, Y_i] onsets.
+    Returns a list of (s0, s1), each [X_i, Y_i], bit-equal to
+    :func:`rt60_moments` on each. One launch on a card (one per
+    :data:`MOMENTS_MAX_ENTRIES` recordings)."""
+    where = "rt60_moments_many"
+    recs, onsets = _check_many(where, params, recs, onsets)
+    if not on_card(where, *recs, *onsets):
+        return rt60_moments_many_reference(params, recs, onsets)
+    s, n = _launch_moments(where, params, recs, onsets)
+    rt60_moments_many.launches += n
+    return _split(s, onsets)
+
+
+def rt60_moments_probe(params: GridParams, recs, onsets,
+                       design: str = "warp", mode: str = "full"):
+    """B2's card kernel with a probe's design and mode, for
+    ``chip_smoke.py``; the engine never calls it, and it counts in no
+    wrapper's ``launches``. ``design``: one of
+    :data:`MOMENTS_PROBE_DESIGNS`, ``"warp"`` the kernel's; ``mode``: one
+    of :data:`MOMENTS_PROBE_MODES` (the outputs are the moments in
+    ``"full"`` only). Arguments and return as :func:`rt60_moments_many`;
+    CUDA tensors only."""
+    where = "rt60_moments_probe"
+    recs, onsets = _check_many(where, params, recs, onsets)
+    if (design not in MOMENTS_PROBE_DESIGNS
+            or mode not in MOMENTS_PROBE_MODES):
+        raise ValueError(f"{where}: no design {design!r} or mode {mode!r}")
+    if not on_card(where, *recs, *onsets):
+        raise ValueError(f"{where}: needs CUDA tensors (a probe of the "
+                         f"card's kernel), got {recs[0].device}")
+    s, _ = _launch_moments(where, params, recs, onsets,
+                           probe=(design, mode))
+    return _split(s, onsets)
 
 
 # ------------------------------------------------------------ compositions

@@ -50,9 +50,10 @@ Each round records the interior's pre-injection pressure into rows
 [t0, t0 + nsteps) of the shard's [T, bx, by] recording and streams the
 interior accumulators (onset, flux, windowed energies), with the round's
 time offset in every moment window. After the rounds each shard's moments
-come from its own recording: B2 (``fdtd_fused.rt60_moments``) after B5, B4
-(``fdtd_tiled.rt60_moments_tiled``) after B6; the recordings stay on their
-devices.
+come from its own recording: after B5 one B2 launch per device over all its
+shards' recordings (``fdtd_fused.rt60_moments_many``), after B6 one B4
+launch per shard (``fdtd_tiled.rt60_moments_tiled``); the recordings stay
+on their devices.
 
 Route, per shard: B5 up to ``fdtd_fused.TILED_MIN_CELLS`` cells, B6 above;
 ``band_rows`` forces B6 (and sets the tile of B6's plain version; the
@@ -802,6 +803,23 @@ def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
     return _results(shards)
 
 
+def _moments_by_device(params, rec, acc, many):
+    """Each shard's (s0, s1) as a block grid, from one call of ``many``
+    (B2 over a list of recordings) per device, over the recordings and
+    onsets of every shard on it."""
+    on = {}
+    for i, row in enumerate(rec):
+        for j, r in enumerate(row):
+            on.setdefault(r.device, []).append((i, j))
+    out = [[None] * len(row) for row in rec]
+    for cells in on.values():
+        got = many(params, [rec[i][j] for i, j in cells],
+                   [acc[i][j][0] for i, j in cells])
+        for (i, j), m in zip(cells, got):
+            out[i][j] = m
+    return out
+
+
 def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
                    mesh: Mesh, nx_pad: int, ny_pad: int, halo: int,
                    band_rows, overlap: bool, reference: bool,
@@ -868,16 +886,18 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
                                "flux_x": grid(1), "flux_y": grid(2)})
     if not with_moments:
         return res, None
-    # one B2 or B4 launch per shard on its recording, the split's included:
-    # a cell's moments read only its own column of the recording
+    # each shard's moments from its own recording, the split's included (a
+    # cell's moments read only its own column): one B2 launch per device
+    # over all its shards' recordings, or one B4 launch per shard
     if banded:
         moments = (fdtd_tiled.rt60_moments_tiled_reference if reference
                    else fdtd_tiled.rt60_moments_tiled)
+        s = [[moments(params, r, a[0]) for r, a in zip(*rows)]
+             for rows in zip(rec, acc)]
     else:
-        moments = (fdtd_fused.rt60_moments_reference if reference
-                   else fdtd_fused.rt60_moments)
-    s = [[moments(params, r, a[0]) for r, a in zip(*rows)]
-         for rows in zip(rec, acc)]
+        s = _moments_by_device(params, rec, acc,
+                               fdtd_fused.rt60_moments_many_reference
+                               if reference else fdtd_fused.rt60_moments_many)
     mom = Sharded(Moments, {
         "e_dry": grid(3), "e_wet": grid(4), "e_total": grid(5),
         "s0": [[v[0] for v in row] for row in s],
