@@ -114,7 +114,31 @@ line per phase:
      headline with one and two views (grids equal the single-device
      Context's) and the 126 m world with cells publish (rows equal phase
      9's), launch counts (two round launches a round, one B2 launch a
-     step) set to 0 before each part.
+     step) set to 0 before each part;
+ 18. the DSP's two recurrences (``csrc/dsp_scan.cu``, counterparts of the
+     JAX package's ``lax.scan``s, not of Pallas kernels) bit for bit
+     against their plain versions: D1 ``lowpass.process_scan`` at 32 and
+     256 sources and blocks of 1, 511, 512 and 4096 samples, cutoffs over
+     20 Hz - 20 kHz with rejected ones among them; D2
+     ``reverb.reverb_scan`` with B = 2 over carried blocks (one of 4096
+     samples, a run across the counter's wrap) and ``mix_output``'s six
+     rows in one launch against three calls; device times (the enqueue
+     hidden), a call's time and the plain versions';
+ 19. the audio path at the headline, ``Context(device="cuda")`` with three
+     emitters: ``sync_dsp`` into the streaming ``DSPContext``, then
+     ``RealtimePlayer(native=False, reverb=True)`` over 2 s of a 440 Hz
+     tone at 44.1 kHz in 512-frame blocks, with the engine idle after one
+     step and stepping on its background thread, each unpaced
+     (``run(realtime=False)``: ``PlayoutReport.summary()``'s mean and max
+     block ms, and the blocks whose own time passed the 11.61 ms budget)
+     and paced (``run(realtime=True)``: the underruns against the
+     deadlines); one D2 launch a block, counted; the idle unpaced run's
+     first blocks held to a CPU replay; ``AudioSourceManager`` with the
+     three emitters' clips and no reverbs (its per-bus reverb is the
+     native one, not ported), one block a frame for the same 2 s;
+     ``render_block`` at 32 and 256
+     sources of 512 frames (one D1 launch a call, counted), its buses
+     against the same call on the CPU (rel 1e-5 of each bus's peak).
 
 Every main path's step is followed by one more with the card's launches of
 each kernel counted (``kernels.device_launches``, zeroed just before it).
@@ -129,6 +153,7 @@ beside it; it imports neither jax nor planeverb_tpu.
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -189,6 +214,29 @@ F32_OPS_PER_S = 67e12
 # moments (the JAX kernels' pl.CostEstimate: 40 flops; 8 flops and a log)
 SIM_OPS = 40
 MOMENTS_OPS = 9
+# the DSP's two recurrences (phases 18, 19): a 512-frame callback at 44.1
+# kHz (the reference sandbox's stream), 2 s of audio; D1 at a game's real
+# voice budgets (32, and 256: Unity's default and maximum real voices) and
+# at blocks of 1 to 4096 samples (max_callback_length's limit)
+AUDIO_RATE = 44100
+AUDIO_FRAMES = 512
+AUDIO_SECONDS = 2.0
+D1_SOURCES = (32, 256)
+D1_BLOCKS = (1, 511, 512, 4096)
+REPS_DSP = 20
+# the card's playout held to a CPU replay of its first blocks (the same
+# numpy DSP, D2's plain version): both round every op once
+AUDIO_CHECK_BLOCKS = 8
+AUDIO_REL_TOL = 1e-6
+# the recurrences' serial chains: the float32 operations a step waits on
+# from the last (D1: the y[t-1] product and two adds; D2: the damping
+# memory's multiply and add), at an assumed dependent-instruction latency
+# (not measured here: the chain floor printed in phase 18 is reckoned from
+# it and stays out of the kernels line); D2's operations a sample and row
+D1_CHAIN_OPS = 3
+D2_CHAIN_OPS = 2
+FP32_LATENCY = 4
+D2_OPS = 30
 # the sleep a timed call waits behind (torch.cuda._sleep cycles, ~2.5 ms),
 # so a device time leaves out the call's host enqueue; an L2 flush (the
 # card's L2 is 50 MB) for the moments timed cold
@@ -459,7 +507,8 @@ ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
 # kernel names as they appear in ptxas's mangled entry names
 _KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel", "rt60_moments_kernel",
             "rt60_moments_direct_kernel", "rt60_moments_spread_kernel",
-            "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel")
+            "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel",
+            "biquad_scan_kernel", "reverb_scan_kernel")
 
 
 def _template_args(tail):
@@ -837,6 +886,383 @@ def _across_cards(pv, kernels, dev, card) -> None:
                   f"{label})", flush=True)
         del single
         torch.cuda.empty_cache()
+
+
+def _same(a, b) -> bool:
+    """Bit-equal where both are numbers, NaN where both are NaN."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)
+                and torch.equal(torch.where(na, 0.0, a),
+                                torch.where(nb, 0.0, b)))
+
+
+def _max_abs(pairs):
+    """The largest |a - b| over finite entries of (a, b) pairs."""
+    import torch
+
+    err = 0.0
+    for a, b in pairs:
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        if fin.any():
+            err = max(err, (a[fin] - b[fin]).abs().max().item())
+    return err
+
+
+def _sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _dsp_scans_phase(label):
+    """Phase 18: D1 (lowpass.process_scan) and D2 (reverb.reverb_scan_many)
+    held bit for bit to their plain versions on the card in every case, and
+    timed. Returns the numbers of their kernel rows."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch.dsp import lowpass, reverb
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+
+    def card(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+
+    # -- D1: cutoffs spread over 20 Hz - 20 kHz, every 8th source rejected
+    # by render_block's gate (below 20 Hz, above 20 kHz, 0, negative)
+    d1_err, d1_cases = 0.0, []
+    for s in D1_SOURCES:
+        cut = np.geomspace(20.0, 20000.0, s).astype(np.float32)
+        cut[::8] = np.resize(np.array([5.0, 30000.0, 0.0, -100.0],
+                                      np.float32), cut[::8].shape)
+        for n in D1_BLOCKS:
+            x = card(rng.standard_normal((s, n)).astype(np.float32))
+            y1 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
+            y2 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
+            c = card(cut)
+            k = lowpass.process_scan(x, y1, y2, c, AUDIO_RATE)
+            r = lowpass.process_scan_reference(x, y1, y2, c, AUDIO_RATE)
+            torch.cuda.synchronize()
+            _require(all(_same(a, b) for a, b in zip(k, r)),
+                     f"D1 biquad_scan S={s} N={n} differs from its plain "
+                     f"version")
+            d1_err = max(d1_err, _max_abs(zip(k, r)))
+            d1_cases.append(f"{s}x{n}")
+    # timed at the main path's shape: 256 sources of a 512-frame block
+    s, n = D1_SOURCES[-1], AUDIO_FRAMES
+    x = card(rng.standard_normal((s, n)).astype(np.float32))
+    z = torch.zeros(s, device=dev)
+    c = card(np.geomspace(20.0, 20000.0, s).astype(np.float32))
+    d1_ms = _device_ms(lambda: lowpass.process_scan(x, z, z, c, AUDIO_RATE),
+                       REPS_DSP)
+    d1_call_ms = _cuda_ms(lambda: lowpass.process_scan(x, z, z, c,
+                                                       AUDIO_RATE), REPS_DSP)
+    d1_plain_ms = _cuda_ms(lambda: lowpass.process_scan_reference(
+        x, z, z, c, AUDIO_RATE), 3)
+    # bytes: x read, out written, y1/y2/cutoff read, y1/y2 written; ops: 3
+    # multiplies and 2 adds a sample; the chain: each step's y[t-1] product
+    # and two adds in turn, FP32_LATENCY cycles each
+    d1_bound = _bound(4 * (2 * s * n + 5 * s), 5 * s * n)
+    clock = _sm_clock_hz()
+    d1_chain_ms = n * D1_CHAIN_OPS * FP32_LATENCY / clock * 1e3
+
+    # -- D2: one reverb of B = 2 rows from a filled state, several blocks
+    # carried, one of 4096 samples, across the counter's wrap
+    p = reverb.reverb_params(1.0, AUDIO_RATE)
+    lc, la = max(p.comb_delays), max(p.allpass_delays)
+    wrap = math.lcm(lc, la)
+
+    def filled(params, batch, pos):
+        return reverb.ReverbState(
+            card((rng.standard_normal((batch, 4, lc)) * 0.1)
+                 .astype(np.float32)),
+            card((rng.standard_normal((batch, 4)) * 0.1).astype(np.float32)),
+            card((rng.standard_normal((batch, 2, la)) * 0.1)
+                 .astype(np.float32)),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+    d2_err, d2_cases = 0.0, []
+    for start, blocks in (("filled", (512, 4096)),
+                          ("before the wrap", (512, 512, 512, 700))):
+        ks = rs = filled(p, 2, 0 if start == "filled" else wrap - 1300)
+        for n in blocks:
+            x = card((rng.standard_normal((2, n)) * 0.3).astype(np.float32))
+            ky, ks = reverb.reverb_scan(x, ks, p)
+            ry, rs = reverb.reverb_scan_reference(x, rs, p)
+            torch.cuda.synchronize()
+            pairs = [(ky, ry), *zip(ks[:3], rs[:3])]
+            _require(_same(ky, ry) and all(_same(a, b) for a, b in pairs)
+                     and int(ks.pos) == int(rs.pos),
+                     f"D2 reverb_scan B=2 {start} N={n} differs from its "
+                     f"plain version")
+            d2_err = max(d2_err, _max_abs(pairs))
+        d2_cases.append(f"{start} {'+'.join(map(str, blocks))}")
+        if start != "filled":
+            _require(int(ks.pos) < wrap - 1300, "the wrap was not crossed")
+    # mix_output's six rows (three decays x two channels) in one launch
+    # against three calls and against the plain version
+    jobs = []
+    for i, rt60 in enumerate((0.5, 1.0, 3.0)):
+        pi = reverb.reverb_params(rt60, AUDIO_RATE)
+        x = card((rng.standard_normal((2, AUDIO_FRAMES)) * 0.3)
+                 .astype(np.float32))
+        jobs.append((x, filled(pi, 2, 1000 * i), pi))
+    before = reverb.reverb_scan_many.launches
+    many = reverb.reverb_scan_many(jobs)
+    _require(reverb.reverb_scan_many.launches == before + 1,
+             "mix_output's six rows must take one D2 launch")
+    for job, (y, st) in zip(jobs, many):
+        y3, st3 = reverb.reverb_scan(*job)
+        yr, sr = reverb.reverb_scan_reference(*job)
+        torch.cuda.synchronize()
+        for other, ost in ((y3, st3), (yr, sr)):
+            _require(_same(y, other) and all(_same(a, b) for a, b in
+                                             zip(st[:3], ost[:3]))
+                     and int(st.pos) == int(ost.pos),
+                     f"D2 six rows in one launch differ (rt60 {job[2].rt60})")
+        d2_err = max(d2_err, _max_abs([(y, yr), *zip(st[:3], sr[:3])]))
+    d2_cases.append("6 rows in one launch")
+    d2_ms = _device_ms(lambda: reverb.reverb_scan_many(jobs), REPS_DSP)
+    d2_call_ms = _cuda_ms(lambda: reverb.reverb_scan_many(jobs), REPS_DSP)
+    d2_three_ms = _cuda_ms(lambda: [reverb.reverb_scan(*j) for j in jobs],
+                           REPS_DSP)
+    d2_plain_ms = _cuda_ms(lambda: [reverb.reverb_scan_reference(*j)
+                                    for j in jobs], 2)
+    # bytes: each row's rings and memories read and written, its block read
+    # and written; ops: about 30 a sample a row (4 combs x 4, the sum 4,
+    # the allpasses 8); the chain: the damping memory's multiply and add
+    rows = 2 * len(jobs)
+    ring = 4 * lc + 4 + 2 * la
+    d2_bound = _bound(4 * rows * (2 * ring + 2 * AUDIO_FRAMES),
+                      D2_OPS * rows * AUDIO_FRAMES)
+    d2_chain_ms = AUDIO_FRAMES * D2_CHAIN_OPS * FP32_LATENCY / clock * 1e3
+    print(f"phase 18 D1 biquad_scan: bit-equal to its plain version at "
+          f"{', '.join(d1_cases)} (cutoffs 20 Hz - 20 kHz, every 8th "
+          f"rejected); {s}x{AUDIO_FRAMES}: {d1_ms:.4f} ms device, "
+          f"{d1_call_ms:.4f} ms a call, plain {d1_plain_ms:.3f} ms; bound "
+          f"{d1_bound[0] * 1e3:.3f} us ({d1_bound[1]}), chain floor "
+          f"{d1_chain_ms * 1e3:.3f} us reckoned at {FP32_LATENCY} cycles an "
+          f"operation, {clock / 1e6:.0f} MHz ({label})",
+          flush=True)
+    print(f"phase 18 D2 reverb_scan: bit-equal to its plain version "
+          f"({'; '.join(d2_cases)}; lc {lc}, la {la}, wrap {wrap}); six "
+          f"rows x {AUDIO_FRAMES}: {d2_ms:.4f} ms device, {d2_call_ms:.4f} "
+          f"ms a call (three calls {d2_three_ms:.4f} ms), plain "
+          f"{d2_plain_ms:.3f} ms; bound {d2_bound[0] * 1e3:.3f} us "
+          f"({d2_bound[1]}), chain floor {d2_chain_ms * 1e3:.3f} us reckoned "
+          f"the same way ({label})", flush=True)
+    print(f"phase 18 seconds: {time.perf_counter() - t_phase:.1f}")
+    return {"d1": (d1_err, d1_ms, d1_plain_ms, d1_bound),
+            "d2": (d2_err, d2_ms, d2_plain_ms, d2_bound)}
+
+
+def _replay_on_cpu(ctx, eid, dcfg, tone, played):
+    """The first AUDIO_CHECK_BLOCKS blocks of an idle engine's playout
+    replayed on the CPU: the same DSPContext chain from the card's
+    parameters, then mix_output's plain version; the max abs difference,
+    required within AUDIO_REL_TOL of the peak."""
+    import numpy as np
+
+    from planeverb_tpu_torch.dsp import DSPContext, reverb
+
+    dsp = DSPContext(dcfg)
+    stereo = np.stack([tone, tone], -1)
+    states, chunks = {}, []
+    for b in range(AUDIO_CHECK_BLOCKS):
+        block = stereo[b * AUDIO_FRAMES:(b + 1) * AUDIO_FRAMES]
+        out, gain = ctx.sync_dsp(dsp)[eid]
+        dsp.submit_source(eid, out, block * np.float32(gain))
+        dry, wa, wb, wc = dsp.get_output()
+        mix, states = reverb.mix_output(dry, wa, wb, wc, AUDIO_RATE, states,
+                                        device="cpu")
+        chunks.append(mix.numpy())
+    want = np.concatenate(chunks)
+    err = float(np.abs(played[:len(want)] - want).max())
+    _require(err <= AUDIO_REL_TOL * np.abs(want).max(),
+             f"the card's playout vs the CPU replay: {err}")
+    return err
+
+
+def _audio_phase(pv, kernels, card, label):
+    """Phase 19: the audio path on the card at the headline, through the
+    entry points a game calls: Context.sync_dsp into the streaming
+    DSPContext, RealtimePlayer(native=False) (mix_output: one D2 launch a
+    block) with the engine idle and stepping in the background,
+    AudioSourceManager with the three emitters' clips, and render_block (one
+    D1 launch a block) against the same call on the CPU. Returns the main
+    path's launch counts."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch.dsp import (DSPContext, SourceParams,
+                                         init_state, lowpass, render_block,
+                                         reverb)
+    from planeverb_tpu_torch.ops import fdtd_fused
+    from planeverb_tpu_torch.sandbox.audio_manager import AudioSourceManager
+    from planeverb_tpu_torch.sandbox.realtime import RealtimePlayer
+
+    t_phase = time.perf_counter()
+    size, res = HEADLINE["size"], HEADLINE["resolution"]
+    ctx = pv.Context(pv.PlaneverbConfig(size, size, res),
+                     scene=pv.demo_scene(HEADLINE["scene"]), device="cuda")
+    lx, lz = HEADLINE["listener"]
+    ctx.set_listener_position(lx, 0.0, lz)
+    eids = [ctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    ctx.step()
+    dcfg = pv.PlaneverbDSPConfig(max_callback_length=AUDIO_FRAMES,
+                                 sampling_rate=AUDIO_RATE)
+    dsp = DSPContext(dcfg)
+    dsp.set_listener_transform((lx, 0.0, lz), (1.0, 0.0, 0.0))
+    synced = ctx.sync_dsp(dsp)
+    _require(sorted(synced) == sorted(eids)
+             and all(o.valid for o, _ in synced.values()),
+             f"sync_dsp: {synced}")
+
+    t = np.arange(int(AUDIO_SECONDS * AUDIO_RATE)) / AUDIO_RATE
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    blocks = -(-len(tone) // AUDIO_FRAMES)
+    # one block unmeasured first: the streaming DSP's first call imports
+    # scipy's lfilter (about 2 s)
+    RealtimePlayer(ctx, eids[0], tone[:AUDIO_FRAMES], AUDIO_RATE,
+                   frames=AUDIO_FRAMES, native=False).run(realtime=False)
+    budget = AUDIO_FRAMES / AUDIO_RATE * 1e3
+    reports = {}
+    # each mode unpaced (realtime=False: the blocks back to back, each
+    # block's own time held to the budget) and paced (realtime=True: the
+    # blocks at their deadlines, the report's underruns)
+    for mode, paced in (("engine idle", False), ("engine stepping", False),
+                        ("engine idle", True), ("engine stepping", True)):
+        fdtd_fused.reset_launch_counts()
+        kernels.device_launches(reset=True)
+        it0 = ctx.iteration
+        if mode == "engine stepping":
+            ctx.start()
+        player = RealtimePlayer(ctx, eids[0], tone, AUDIO_RATE,
+                                frames=AUDIO_FRAMES, native=False,
+                                reverb=True)
+        block_ms = []
+
+        def timed(block, process=player.process_block, block_ms=block_ms):
+            t0 = time.perf_counter()
+            out = process(block)
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        player.process_block = timed
+        report = player.run(realtime=paced)
+        if mode == "engine stepping":
+            ctx.stop()
+            _require(ctx.error is None, f"background loop: {ctx.error}")
+            _require(ctx.iteration > it0, "the engine did not step")
+        torch.cuda.synchronize()
+        dl = kernels.device_launches(reset=True)
+        _require(reverb.reverb_scan_many.launches == blocks
+                 and dl["reverb_scan_kernel"] == blocks,
+                 f"{mode}: D2 launches {reverb.reverb_scan_many.launches} "
+                 f"(device {dl['reverb_scan_kernel']}), want one a block "
+                 f"({blocks})")
+        out = report.output
+        _require(out.shape == (len(tone), 2) and np.isfinite(out).all()
+                 and np.abs(out).max() > 0, f"{mode}: output {out.shape}")
+        reports[mode, paced] = (report, reverb.reverb_scan_many.launches,
+                                ctx.iteration - it0,
+                                sum(ms > budget for ms in block_ms))
+        if (mode, paced) == ("engine idle", False):
+            audio_err = _replay_on_cpu(ctx, eids[0], dcfg, tone, out)
+    d2_launches = reports["engine idle", False][1]
+
+    # AudioSourceManager: the three emitters' clips, one block a frame, with
+    # no reverbs (its per-bus reverb is the native one, not ported: A13), so
+    # the dry bus alone
+    mgr = AudioSourceManager(ctx, DSPContext(dcfg))
+    for eid, f in zip(eids, (440.0, 660.0, 220.0)):
+        clip = (0.3 * np.sin(2 * np.pi * f * t)).astype(np.float32)
+        mgr.play(eid, clip, loop=False)
+    mgr_ms = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        m = mgr.process_block(AUDIO_FRAMES, end_finished_emissions=False)
+        mgr_ms.append((time.perf_counter() - t0) * 1e3)
+        _require(np.isfinite(m).all(), "manager block")
+    _require(mgr.active_sources() == [], "the clips did not finish")
+
+    # render_block at a game's voice budgets, held to the same call on the
+    # CPU (rel 1e-5 of each bus's peak)
+    rng = np.random.default_rng(19)
+    rb = {}
+    fdtd_fused.reset_launch_counts()
+    kernels.device_launches(reset=True)
+    rb_calls = 0
+    for s in (32, 256):
+        dirs = rng.standard_normal((s, 2)).astype(np.float32)
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        fields = dict(
+            occlusion=rng.uniform(0.1, 1.0, s), wet_gain=rng.uniform(0.1, 1, s),
+            rt60=rng.uniform(0.2, 3.5, s),
+            lowpass=np.geomspace(20.0, 20000.0, s), direction=dirs,
+            position=rng.uniform(0, size, (s, 2)),
+            forward=rng.standard_normal((s, 2)),
+            directivity=dirs[::-1].copy(),
+            pattern=np.arange(s) % 2)
+        audio = (rng.standard_normal((s, AUDIO_FRAMES, 2)) * 0.3).astype(
+            np.float32)
+
+        def on(d, f=fields, a=audio):
+            tgt = SourceParams(**{
+                k: torch.as_tensor(np.asarray(v), dtype=torch.int32
+                                   if k == "pattern" else torch.float32)
+                .to(d) for k, v in f.items()})
+            st = init_state(len(a), device=d)
+            return (dcfg, torch.from_numpy(a).to(d), tgt, st, (lx, 0.0, lz),
+                    (1.0, 0.0, 0.0))
+
+        args = on("cuda")
+        kb, _ = render_block(*args)
+        cb, _ = render_block(*on("cpu"))
+        rb_calls += 1
+        errs = []
+        for name, k, c in zip(("dry", "A", "B", "C"), kb, cb):
+            k = k.cpu()
+            peak = max(c.abs().max().item(), 1e-30)
+            errs.append((k - c).abs().max().item() / peak)
+            _require(torch.isfinite(k).all() and errs[-1] <= 1e-5,
+                     f"render_block S={s} bus {name}: rel {errs[-1]}")
+        ev = _cuda_ms(lambda: render_block(*args), REPS_DSP)
+        rb_calls += 1 + REPS_DSP
+        rb[s] = (ev, max(errs))
+    torch.cuda.synchronize()
+    d1_launches = lowpass.process_scan.launches
+    dl = kernels.device_launches(reset=True)
+    _require(d1_launches == rb_calls and dl["biquad_scan_kernel"] == rb_calls,
+             f"render_block: D1 launches {d1_launches} (device "
+             f"{dl['biquad_scan_kernel']}), want one a call ({rb_calls})")
+    for (mode, paced), (report, n, steps, over) in reports.items():
+        print(f"phase 19 RealtimePlayer(native=False, reverb=True) on "
+              f"Context(device='cuda') {HEADLINE['size']:g} m at "
+              f"{HEADLINE['resolution']} Hz, {mode}, "
+              f"{'paced' if paced else 'unpaced'} ({steps} steps "
+              f"meanwhile): {json.dumps(report.summary())}; blocks over the "
+              f"{budget:.2f} ms budget {over} of {report.blocks}; D2 "
+              f"launches {n}", flush=True)
+    print(f"phase 19 playout vs the CPU replay of its first "
+          f"{AUDIO_CHECK_BLOCKS} blocks: max abs {audio_err:.3g}; "
+          f"AudioSourceManager, three clips, no reverbs, {blocks} blocks: "
+          f"mean {statistics.mean(mgr_ms):.3f} ms, max {max(mgr_ms):.3f} ms "
+          f"a block (budget {budget:.2f} ms)", flush=True)
+    print("phase 19 render_block on the card, " + "; ".join(
+        f"S={s} N={AUDIO_FRAMES}: {ev:.3f} ms (CUDA events), buses vs the "
+        f"CPU rel {err:.2g}" for s, (ev, err) in rb.items())
+        + f"; D1 launches {d1_launches} ({label})", flush=True)
+    print(f"phase 19 seconds: {time.perf_counter() - t_phase:.1f}")
+    del ctx
+    return {"d1_launches": d1_launches, "d2_launches": d2_launches}
 
 
 def main() -> int:
@@ -2307,6 +2733,10 @@ def main() -> int:
           flush=True)
     print(f"phase 17 seconds: {time.perf_counter() - t_phase:.1f}")
 
+    # -- 18, 19. the DSP's recurrences and the audio path
+    dsp18 = _dsp_scans_phase(label)
+    audio19 = _audio_phase(pv, kernels, card, label)
+
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]
     b3_large = next(r for r in b3.values() if "plain_ms" in r)
@@ -2383,6 +2813,12 @@ def main() -> int:
             "parallel/solver_pallas.py:798", b6o_launches,
             err_of(b6o_vs_plain), b6o["ms"], b6o["plain_ms"],
             _sim_bound(xp), xs_step["round_kernel B6"]),
+        # XLA scans, not Pallas kernels: D1 a render_block call, D2 an
+        # audio callback (device_launches_per_pass: one a call)
+        row("biquad_scan", "dsp_scan.cu", "dsp/lowpass.py:73",
+            audio19["d1_launches"], *dsp18["d1"], 1),
+        row("reverb_scan", "dsp_scan.cu", "dsp/reverb.py:88",
+            audio19["d2_launches"], *dsp18["d2"], 1),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

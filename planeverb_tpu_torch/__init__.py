@@ -23,15 +23,18 @@ from planeverb_tpu_torch.config import (CONSTANTS, MATERIALS, BoundaryType,
                                         Resolution, compute_grid_params,
                                         material_r)
 from planeverb_tpu_torch.core.context import Context
+from planeverb_tpu_torch.core.objects import ObjectManager
 from planeverb_tpu_torch.scene import (AABB, AABB3D, Scene, demo_scene,
                                        load_pv, merge_bounds, save_pv)
+from planeverb_tpu_torch.session import load_session, save_session
 from planeverb_tpu_torch.types import PlaneverbOutput
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AABB", "AABB3D", "BoundaryType", "CONSTANTS", "Context", "MATERIALS",
-    "PlaneverbConfig", "PlaneverbDSPConfig", "PlaneverbOutput", "Resolution",
-    "Scene", "compute_grid_params", "demo_scene", "load_pv", "material_r",
-    "merge_bounds", "save_pv", "__version__",
+    "ObjectManager", "PlaneverbConfig", "PlaneverbDSPConfig",
+    "PlaneverbOutput", "Resolution", "Scene", "compute_grid_params",
+    "demo_scene", "load_pv", "load_session", "material_r", "merge_bounds",
+    "save_pv", "save_session", "__version__",
 ]

@@ -3,8 +3,10 @@
 The engine has no weights; what the two packages must share to compute on
 the same inputs is the scene, the voxelized fields (beta, R), the source
 pulse, and the calibrated EFree (a Python float, which needs no
-conversion). Nothing here imports ``planeverb_tpu``: the JAX package's
-scene objects are read through their dataclass fields, and its arrays
+conversion); the DSP's carried state (the batched renderer's smoothing and
+filter memories, a reverb's rings and counter) lets both packages run on
+from the same point of a stream. Nothing here imports ``planeverb_tpu``:
+the JAX package's objects are read through their fields, and its arrays
 through numpy.
 """
 
@@ -13,9 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from planeverb_tpu_torch.dsp.ops import DSPState, SourceParams
+from planeverb_tpu_torch.dsp.reverb import ReverbState
 from planeverb_tpu_torch.scene import AABB, Scene
 
-__all__ = ["scene_from_jax", "fields_from_numpy"]
+__all__ = ["scene_from_jax", "fields_from_numpy", "dsp_state_from_numpy",
+           "reverb_state_from_numpy"]
+
+
+def _tensor(a, device, dtype=np.float32):
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(
+        device)
 
 
 def scene_from_jax(scene) -> Scene:
@@ -31,8 +41,30 @@ def scene_from_jax(scene) -> Scene:
 def fields_from_numpy(beta, refl, pulse, *, device):
     """numpy [nx, ny] beta/R and [T] pulse (from either package) -> float32
     tensors on ``device``."""
-    def conv(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(a, np.float32))).to(device)
+    return (_tensor(beta, device), _tensor(refl, device),
+            _tensor(pulse, device))
 
-    return conv(beta), conv(refl), conv(pulse)
+
+def dsp_state_from_numpy(state, *, device) -> DSPState:
+    """A batched renderer's ``DSPState`` of either package (its fields
+    readable by numpy: ``current``'s [S] / [S, 2] parameters, int32
+    ``pattern``, and the [S] filter memories) -> the port's on ``device``."""
+    cur = state.current
+    current = SourceParams(*(
+        _tensor(getattr(cur, f), device,
+                np.int32 if f == "pattern" else np.float32)
+        for f in SourceParams._fields))
+    return DSPState(current=current, lpf_y1=_tensor(state.lpf_y1, device),
+                    lpf_y2=_tensor(state.lpf_y2, device))
+
+
+def reverb_state_from_numpy(state, *, device) -> ReverbState:
+    """A ``ReverbState`` of either package ([B, 4, Lc] combs, [B, 4]
+    damping memories, [B, 2, La] allpasses, the scalar counter) -> the
+    port's on ``device``, ``pos`` a 0-dim int32 tensor."""
+    return ReverbState(
+        comb_buf=_tensor(state.comb_buf, device),
+        comb_lp=_tensor(state.comb_lp, device),
+        ap_buf=_tensor(state.ap_buf, device),
+        pos=torch.tensor(int(np.asarray(state.pos)), dtype=torch.int32,
+                         device=device))

@@ -578,6 +578,42 @@ class Context:
             return invalid_output()
         return self.result_at(pos[0], pos[2], listener=listener)
 
+    def sync_dsp(self, dsp,
+                 listener: int = 0) -> dict[int, tuple[PlaneverbOutput,
+                                                       float]]:
+        """Push every live emission's state into a DSP context and return
+        ``{eid: (acoustic output, emit-time volume gain)}``. In
+        multi-listener mode pass one DSP context per view with its
+        ``listener`` index (each split-screen player mixes against their
+        own parameters).
+
+        This is the per-frame engine->DSP handoff the reference spreads over
+        its Unity components (PlaneverbEmitter.cs:52-60 UpdateEmission/
+        UpateEmitter/GetOutput each frame, :93 SetEmitterDirectivityPattern
+        at emit): position+forward and the directivity pattern go to the DSP
+        side; the caller scales the source audio by the returned volume gain
+        before ``submit_source`` (PlaneverbAudioSource applies
+        GetVolumeGain() to its samples).
+        """
+        results: dict[int, tuple[PlaneverbOutput, float]] = {}
+        live = self.emissions.snapshot_emissions()
+        for eid, em in sorted(live.items()):
+            dsp.update_emitter(eid, em.position, em.forward)
+            dsp.set_emitter_directivity_pattern(eid, em.pattern)
+            results[eid] = (self.result_at(em.position[0], em.position[2],
+                                           listener=listener),
+                            em.volume_gain)
+        # drop DSP-side state for emitters that ended since the last sync:
+        # emission ids are free-list-reused (EmissionManager.cpp:37-67), and
+        # a reused id must not inherit the dead sound's interpolation state
+        # (current gains/pan, lowpass filter memory, directivity pattern)
+        prev = getattr(dsp, "_pv_synced_ids", ())
+        for eid in prev:
+            if eid not in live:
+                dsp.remove_emitter(eid)
+        dsp._pv_synced_ids = frozenset(live)
+        return results
+
     def get_impulse_response(self, x: float, z: float) -> np.ndarray:
         """Debug IR accessor (Planeverb::GetImpulseResponse analog).
 

@@ -16,6 +16,8 @@ enum DeviceKernel : int {
   kRt60MomentsKernel,
   kFdtdTiledKernel,
   kRt60MomentsTiledKernel,
+  kBiquadScanKernel,
+  kReverbScanKernel,
   kShardedRoundKernel,
   kBandedRoundKernel,
   kDeviceKernels

@@ -25,13 +25,13 @@ import tempfile
 import threading
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "DEVICE_KERNELS", "RoundSource",
-           "RoundRegion", "MomentsEntry", "nvcc", "build", "library",
+           "RoundRegion", "MomentsEntry", "ReverbRow", "nvcc", "build", "library",
            "check", "device_launches"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("fdtd_fused.cu", "moments.cu", "fdtd_tiled.cu",
-            "solver_rounds.cu")
+            "solver_rounds.cu", "dsp_scan.cu")
 # included by the sources: part of the build's tag
 _HEADERS = ("common.cuh", "windows.cuh")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -78,6 +78,14 @@ _SIGNATURES = {
     "pv_round_region_bytes": [],
     # out[n], n, reset -> the number of kernels counted
     "pv_device_launches": [_P, _I, _I],
+    # D1: x, y1, y2, cutoff, out, y1_out, y2_out, S, N, fs, 2 pi, sqrt 2,
+    # stream
+    "pv_biquad_scan": [_P] * 7 + [_I] * 2 + [_F] * 3 + [_P],
+    # D2: ReverbRow table, rows, N, 4 comb and 2 allpass delays, lc, la,
+    # wrap, damping, 1 - damping, allpass gain, stream
+    "pv_reverb_scan": [_P] + [_I] * 11 + [_F] * 3 + [_P],
+    # -> sizeof(ReverbRow) in csrc/dsp_scan.cu
+    "pv_reverb_row_bytes": [],
 }
 
 # The library's kernels in the order of csrc/common.cuh DeviceKernel. The
@@ -85,8 +93,8 @@ _SIGNATURES = {
 # counted by the mode its launcher ran it in: B5 or B6.
 DEVICE_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel",
                   "rt60_moments_kernel", "fdtd_tiled_kernel",
-                  "rt60_moments_tiled_kernel", "round_kernel B5",
-                  "round_kernel B6")
+                  "rt60_moments_tiled_kernel", "biquad_scan_kernel",
+                  "reverb_scan_kernel", "round_kernel B5", "round_kernel B6")
 
 
 class RoundSource(ctypes.Structure):
@@ -112,6 +120,15 @@ class MomentsEntry(ctypes.Structure):
     every row starts 16-byte aligned."""
     _fields_ = [("rec", _P), ("onset", _P), ("s0", _P), ("s1", _P),
                 ("cells", ctypes.c_longlong), ("tile0", _I), ("aligned", _I)]
+
+
+class ReverbRow(ctypes.Structure):
+    """csrc/dsp_scan.cu ``ReverbRow``: one row of a D2 launch (one channel
+    of one reverb), its input, output, state in and state out; ``pos_out``
+    is null on every row of a state but its first."""
+    _fields_ = [("x", _P), ("out", _P), ("comb_in", _P), ("comb_out", _P),
+                ("lp_in", _P), ("lp_out", _P), ("ap_in", _P), ("ap_out", _P),
+                ("pos_in", _P), ("pos_out", _P), ("fb", _F * 4)]
 
 
 _LOCK = threading.Lock()
@@ -209,6 +226,10 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"MomentsEntry is {ctypes.sizeof(MomentsEntry)} bytes, "
                     f"the library's Entry {lib.pv_moments_entry_bytes()}")
+            if lib.pv_reverb_row_bytes() != ctypes.sizeof(ReverbRow):
+                raise RuntimeError(
+                    f"ReverbRow is {ctypes.sizeof(ReverbRow)} bytes, "
+                    f"the library's ReverbRow {lib.pv_reverb_row_bytes()}")
             _LIB = lib
         return _LIB
 

@@ -1,11 +1,13 @@
 """The port imports without JAX, and its copied modules equal their originals.
 
 planeverb_tpu_torch carries copies of the NumPy/stdlib modules it needs
-(config, scene) because importing any planeverb_tpu submodule imports jax
-(planeverb_tpu/__init__.py imports the Context eagerly). These tests pin
-each copy to its original.
+(config, scene, objects, session, the DSP's NumPy modules, the sandbox's
+WAV I/O and playback manager) because importing any planeverb_tpu
+submodule imports jax (planeverb_tpu/__init__.py imports the Context
+eagerly). These tests pin each copy to its original.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -39,6 +41,10 @@ def test_imports_without_jax():
         assert "jax" not in [k for k, v in sys.modules.items() if v]
         assert "planeverb_tpu_torch.ops.fdtd_tiled" in names
         assert "planeverb_tpu_torch.parallel.solver_fused" in names
+        for name in ("dsp", "dsp.reverb", "api", "session",
+                     "sandbox.realtime", "sandbox.audio_manager",
+                     "core.objects"):
+            assert "planeverb_tpu_torch." + name in names, name
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -105,3 +111,105 @@ def test_materials_match():
     assert dataclasses.asdict(jcfg.MATERIALS) == dataclasses.asdict(
         tcfg.MATERIALS)
     assert tcfg.material_r("grass") == jcfg.material_r("grass")
+
+
+# ------------------------------------------------------- the copied modules
+class _Strip(ast.NodeTransformer):
+    """Drops import statements and docstrings: a copy may differ from its
+    original in those alone."""
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def _body(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body = body[1:]
+        node.body = body or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = visit_FunctionDef = _body
+
+
+def _defs(path, names=None):
+    """{top-level name: ast dump} of a module's code, imports and
+    docstrings dropped; ``names`` keeps only those definitions."""
+    with open(os.path.join(_ROOT, path)) as f:
+        tree = _Strip().visit(ast.parse(f.read()))
+    out = {}
+    for i, node in enumerate(tree.body):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = node.name
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            t = node.targets[0] if isinstance(node, ast.Assign) \
+                else node.target
+            name = ast.unparse(t)
+        else:
+            name = f"<stmt {i}>"
+        if names is None or name in names:
+            out[name] = ast.dump(node)
+    return out
+
+
+# (original, copy, names pinned: None for the whole module)
+_COPIES = [
+    ("core/objects.py", "core/objects.py", None),
+    ("session.py", "session.py", None),
+    ("dsp/gains.py", "dsp/gains.py", None),
+    ("dsp/context.py", "dsp/context.py", None),
+    ("sandbox/wav.py", "sandbox/wav.py", None),
+    ("sandbox/audio_manager.py", "sandbox/audio_manager.py", None),
+    ("dsp/lowpass.py", "dsp/lowpass.py",
+     {"SQRT_2", "PI", "coefficients", "LowpassState", "process"}),
+    ("dsp/reverb.py", "dsp/reverb.py",
+     {"COMB_DELAYS_S", "ALLPASS_DELAYS_S", "ALLPASS_G", "DAMPING",
+      "comb_feedback", "ReverbParams", "reverb_params", "ReverbState"}),
+    ("dsp/convolver.py", "dsp/convolver.py", {"synthetic_ir",
+                                              "resample_ir"}),
+]
+
+
+@pytest.mark.parametrize("orig,copy,names", _COPIES,
+                         ids=[c[1] for c in _COPIES])
+def test_copies_equal_their_originals(orig, copy, names):
+    """Each copied module (or the copied part of a ported one) has its
+    original's code, up to the import lines and docstrings."""
+    want = _defs(os.path.join("planeverb_tpu", orig), names)
+    got = _defs(os.path.join("planeverb_tpu_torch", copy), names)
+    if names is not None:
+        assert set(want) == set(names), sorted(names - set(want))
+    assert got == want
+
+
+def test_audio_path_imports_without_jax():
+    """The DSP, the api facade, sessions and the audio-frame loops import
+    and run a block on the CPU with jax and planeverb_tpu blocked."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["planeverb_tpu"] = None
+        import numpy as np
+        import torch
+        import planeverb_tpu_torch as pv
+        from planeverb_tpu_torch import api, dsp, session
+        from planeverb_tpu_torch.dsp.reverb import mix_output
+        from planeverb_tpu_torch.sandbox import audio_manager, realtime, wav
+        state = dsp.init_state(2, device="cpu")
+        target = state.current._replace(
+            direction=torch.tensor([[1.0, 0.0], [0.0, 1.0]]))
+        buses, _ = dsp.render_block(pv.PlaneverbDSPConfig(), torch.ones(
+            2, 64, 2), target, state, (0.0, 0.0, 0.0), (1.0, 0.0, 0.0))
+        mix, states = mix_output(*buses, 44100, device="cpu")
+        assert mix.shape == (64, 2) and len(states) == 3
+        assert "jax" not in [k for k, v in sys.modules.items() if v]
+        print(sorted(dsp.__all__))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "render_block" in proc.stdout
