@@ -117,13 +117,17 @@ line per phase:
      step) set to 0 before each part;
  18. the DSP's two recurrences (``csrc/dsp_scan.cu``, counterparts of the
      JAX package's ``lax.scan``s, not of Pallas kernels) bit for bit
-     against their plain versions: D1 ``lowpass.process_scan`` at 32 and
-     256 sources and blocks of 1, 511, 512 and 4096 samples, cutoffs over
-     20 Hz - 20 kHz with rejected ones among them; D2
-     ``reverb.reverb_scan`` with B = 2 over carried blocks (one of 4096
-     samples, a run across the counter's wrap) and ``mix_output``'s six
-     rows in one launch against three calls; device times (the enqueue
-     hidden), a call's time and the plain versions';
+     against their plain versions: D1 ``lowpass.process_scan`` at 1, 32,
+     33 and 256 sources and blocks of 1, 511, 512 and 4096 samples, and
+     rows starting mid-word, cutoffs over 20 Hz - 20 kHz with rejected
+     ones among them; D2 ``reverb.reverb_scan`` with B = 2 over carried
+     blocks of 1 to 4096 samples at 44.1 kHz, 11025 Hz (an odd allpass
+     ring) and 1000 Hz (one-step allpass sub-chunks), across the counter's
+     wrap and from rings starting mid-word, and ``mix_output``'s six rows
+     in one launch against three calls; device times (the enqueue hidden),
+     a call's time (``d2_call_ms``) and enqueue, the plain versions', and
+     each recurrence's chain floor measured by a chain-only probe
+     (``pv_dsp_chain_probe``) beside the reckoned one;
  19. the audio path at the headline, ``Context(device="cuda")`` with three
      emitters: ``sync_dsp`` into the streaming ``DSPContext``, then
      ``RealtimePlayer(native=False, reverb=True)`` over 2 s of a 440 Hz
@@ -132,7 +136,8 @@ line per phase:
      (``run(realtime=False)``: ``PlayoutReport.summary()``'s mean and max
      block ms, and the blocks whose own time passed the 11.61 ms budget)
      and paced (``run(realtime=True)``: the underruns against the
-     deadlines); one D2 launch a block, counted; the idle unpaced run's
+     deadlines), each block's wait on the player's DSP stream beside its
+     host wall; one D2 launch a block, counted; the idle unpaced run's
      first blocks held to a CPU replay; ``AudioSourceManager`` with the
      three emitters' clips and no reverbs (its per-bus reverb is the
      native one, not ported), one block a frame for the same 2 s;
@@ -223,7 +228,18 @@ AUDIO_FRAMES = 512
 AUDIO_SECONDS = 2.0
 D1_SOURCES = (32, 256)
 D1_BLOCKS = (1, 511, 512, 4096)
+# D1's bit-equality cases add a lone source and a ragged warp
+D1_CASE_SOURCES = (1, 32, 33, 256)
+# D2's bit-equality cases: (rate, start, blocks carried one to the next)
+D2_CASES = ((44100, "filled", (1, 512, 4096)),
+            (44100, "before the wrap", (512, 512, 512, 700)),
+            (44100, "mid-word", (512, 700)),
+            (11025, "filled", (1, 512, 4096)),
+            (11025, "before the wrap", (700, 1000)),
+            (1000, "filled", (1, 512, 4096)))
 REPS_DSP = 20
+# a chain probe's long run: this many callbacks' steps
+CHAIN_PROBE_REPEAT = 64
 # the card's playout held to a CPU replay of its first blocks (the same
 # numpy DSP, D2's plain version): both round every op once
 AUDIO_CHECK_BLOCKS = 8
@@ -231,8 +247,9 @@ AUDIO_REL_TOL = 1e-6
 # the recurrences' serial chains: the float32 operations a step waits on
 # from the last (D1: the y[t-1] product and two adds; D2: the damping
 # memory's multiply and add), at an assumed dependent-instruction latency
-# (not measured here: the chain floor printed in phase 18 is reckoned from
-# it and stays out of the kernels line); D2's operations a sample and row
+# (phase 18 prints this reckoning beside the chain floor its probes
+# measure; neither goes into the kernels line); D2's operations a sample
+# and row
 D1_CHAIN_OPS = 3
 D2_CHAIN_OPS = 2
 FP32_LATENCY = 4
@@ -508,7 +525,8 @@ ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
 _KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel", "rt60_moments_kernel",
             "rt60_moments_direct_kernel", "rt60_moments_spread_kernel",
             "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel",
-            "biquad_scan_kernel", "reverb_scan_kernel")
+            "biquad_scan_kernel", "reverb_scan_kernel",
+            "dsp_chain_probe_kernel")
 
 
 def _template_args(tail):
@@ -919,10 +937,50 @@ def _sm_clock_hz():
     return float(out) * 1e6
 
 
-def _dsp_scans_phase(label):
+def _mid_word(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (the kernels' word-copy paths)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _chain_probe(kernels, kind, blocks, coeffs):
+    """A DSP chain probe (csrc/dsp_scan.cu pv_dsp_chain_probe): the
+    recurrence's loop-carried ops alone, on blocks x 32 lanes. Returns
+    (ns a step from the device times of a long probe less an empty one,
+    device ms of a probe of AUDIO_FRAMES steps, clock64 cycles a step of
+    that probe)."""
+    import torch
+
+    vals = torch.empty(blocks * 32, device="cuda")
+    cycles = torch.zeros(blocks, dtype=torch.int64, device="cuda")
+    lib = kernels.library()
+
+    def probe(n):
+        err = lib.pv_dsp_chain_probe(
+            kind, blocks, n, *coeffs, vals.data_ptr(), cycles.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        kernels.check(err, "pv_dsp_chain_probe")
+
+    long = AUDIO_FRAMES * CHAIN_PROBE_REPEAT
+    t_long = _device_ms(lambda: probe(long), REPS_DSP)
+    t_empty = _device_ms(lambda: probe(0), REPS_DSP)
+    t_n = _device_ms(lambda: probe(AUDIO_FRAMES), REPS_DSP)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(vals).all()), "chain probe values")
+    return ((t_long - t_empty) / long * 1e6, t_n,
+            cycles.max().item() / AUDIO_FRAMES)
+
+
+def _dsp_scans_phase(kernels, label):
     """Phase 18: D1 (lowpass.process_scan) and D2 (reverb.reverb_scan_many)
     held bit for bit to their plain versions on the card in every case, and
-    timed. Returns the numbers of their kernel rows."""
+    timed, with each recurrence's chain alone (the chain probes). Returns
+    the numbers of their kernel rows."""
     import numpy as np
     import torch
 
@@ -936,25 +994,30 @@ def _dsp_scans_phase(label):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
     # -- D1: cutoffs spread over 20 Hz - 20 kHz, every 8th source rejected
-    # by render_block's gate (below 20 Hz, above 20 kHz, 0, negative)
+    # by render_block's gate (below 20 Hz, above 20 kHz, 0, negative); 1
+    # and 33 sources (a lone lane, a ragged warp), and a block whose rows
+    # start mid-word (the 4-byte copies with N % 4 == 0)
     d1_err, d1_cases = 0.0, []
-    for s in D1_SOURCES:
+    for s, n, mid in ([(s, n, False) for s in D1_CASE_SOURCES
+                       for n in D1_BLOCKS]
+                      + [(D1_SOURCES[-1], AUDIO_FRAMES, True)]):
         cut = np.geomspace(20.0, 20000.0, s).astype(np.float32)
         cut[::8] = np.resize(np.array([5.0, 30000.0, 0.0, -100.0],
                                       np.float32), cut[::8].shape)
-        for n in D1_BLOCKS:
-            x = card(rng.standard_normal((s, n)).astype(np.float32))
-            y1 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
-            y2 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
-            c = card(cut)
-            k = lowpass.process_scan(x, y1, y2, c, AUDIO_RATE)
-            r = lowpass.process_scan_reference(x, y1, y2, c, AUDIO_RATE)
-            torch.cuda.synchronize()
-            _require(all(_same(a, b) for a, b in zip(k, r)),
-                     f"D1 biquad_scan S={s} N={n} differs from its plain "
-                     f"version")
-            d1_err = max(d1_err, _max_abs(zip(k, r)))
-            d1_cases.append(f"{s}x{n}")
+        x = card(rng.standard_normal((s, n)).astype(np.float32))
+        if mid:
+            x = _mid_word(x)
+        y1 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
+        y2 = card((rng.standard_normal(s) * 0.1).astype(np.float32))
+        c = card(cut)
+        k = lowpass.process_scan(x, y1, y2, c, AUDIO_RATE)
+        r = lowpass.process_scan_reference(x, y1, y2, c, AUDIO_RATE)
+        torch.cuda.synchronize()
+        _require(all(_same(a, b) for a, b in zip(k, r)),
+                 f"D1 biquad_scan S={s} N={n}{' mid-word' * mid} differs "
+                 f"from its plain version")
+        d1_err = max(d1_err, _max_abs(zip(k, r)))
+        d1_cases.append(f"{s}x{n}{' mid-word' * mid}")
     # timed at the main path's shape: 256 sources of a 512-frame block
     s, n = D1_SOURCES[-1], AUDIO_FRAMES
     x = card(rng.standard_normal((s, n)).astype(np.float32))
@@ -968,18 +1031,22 @@ def _dsp_scans_phase(label):
         x, z, z, c, AUDIO_RATE), 3)
     # bytes: x read, out written, y1/y2/cutoff read, y1/y2 written; ops: 3
     # multiplies and 2 adds a sample; the chain: each step's y[t-1] product
-    # and two adds in turn, FP32_LATENCY cycles each
+    # and two adds in turn, reckoned at FP32_LATENCY cycles each, and
+    # measured by the chain probe on as many warps
     d1_bound = _bound(4 * (2 * s * n + 5 * s), 5 * s * n)
     clock = _sm_clock_hz()
     d1_chain_ms = n * D1_CHAIN_OPS * FP32_LATENCY / clock * 1e3
+    cx, cy1, cy2 = (float(v) for v in lowpass.coefficients(
+        np.float32(1000.0), np.float32(AUDIO_RATE)))
+    d1_probe = _chain_probe(kernels, 0, -(-s // 32), (cx, cy1, cy2))
 
     # -- D2: one reverb of B = 2 rows from a filled state, several blocks
-    # carried, one of 4096 samples, across the counter's wrap
-    p = reverb.reverb_params(1.0, AUDIO_RATE)
-    lc, la = max(p.comb_delays), max(p.allpass_delays)
-    wrap = math.lcm(lc, la)
-
+    # carried (1 sample; 4096, whose combs read samples of the same block),
+    # across the counter's wrap, at 44.1 kHz, 11025 Hz (la odd: the allpass
+    # rings by words; ad_1 = 18) and 1000 Hz (ad_1 = 1: one-step allpass
+    # sub-chunks), and from a state whose rings start mid-word
     def filled(params, batch, pos):
+        lc, la = max(params.comb_delays), max(params.allpass_delays)
         return reverb.ReverbState(
             card((rng.standard_normal((batch, 4, lc)) * 0.1)
                  .astype(np.float32)),
@@ -989,9 +1056,14 @@ def _dsp_scans_phase(label):
             torch.tensor(pos, dtype=torch.int32, device=dev))
 
     d2_err, d2_cases = 0.0, []
-    for start, blocks in (("filled", (512, 4096)),
-                          ("before the wrap", (512, 512, 512, 700))):
-        ks = rs = filled(p, 2, 0 if start == "filled" else wrap - 1300)
+    for rate, start, blocks in D2_CASES:
+        p = reverb.reverb_params(1.0, rate)
+        lc, la = max(p.comb_delays), max(p.allpass_delays)
+        wrap = math.lcm(lc, la)
+        pos0 = wrap - 1300 if start == "before the wrap" else 0
+        ks = rs = filled(p, 2, pos0)
+        if start == "mid-word":
+            ks = rs = reverb.ReverbState(*map(_mid_word, ks[:3]), ks.pos)
         for n in blocks:
             x = card((rng.standard_normal((2, n)) * 0.3).astype(np.float32))
             ky, ks = reverb.reverb_scan(x, ks, p)
@@ -1000,14 +1072,17 @@ def _dsp_scans_phase(label):
             pairs = [(ky, ry), *zip(ks[:3], rs[:3])]
             _require(_same(ky, ry) and all(_same(a, b) for a, b in pairs)
                      and int(ks.pos) == int(rs.pos),
-                     f"D2 reverb_scan B=2 {start} N={n} differs from its "
-                     f"plain version")
+                     f"D2 reverb_scan {rate} Hz B=2 {start} N={n} differs "
+                     f"from its plain version")
             d2_err = max(d2_err, _max_abs(pairs))
-        d2_cases.append(f"{start} {'+'.join(map(str, blocks))}")
-        if start != "filled":
-            _require(int(ks.pos) < wrap - 1300, "the wrap was not crossed")
+        d2_cases.append(f"{rate} Hz (lc {lc}, la {la}) {start} "
+                        f"{'+'.join(map(str, blocks))}")
+        if start == "before the wrap":
+            _require(int(ks.pos) < pos0, "the wrap was not crossed")
     # mix_output's six rows (three decays x two channels) in one launch
     # against three calls and against the plain version
+    p = reverb.reverb_params(1.0, AUDIO_RATE)
+    lc, la = max(p.comb_delays), max(p.allpass_delays)
     jobs = []
     for i, rt60 in enumerate((0.5, 1.0, 3.0)):
         pi = reverb.reverb_params(rt60, AUDIO_RATE)
@@ -1031,6 +1106,8 @@ def _dsp_scans_phase(label):
     d2_cases.append("6 rows in one launch")
     d2_ms = _device_ms(lambda: reverb.reverb_scan_many(jobs), REPS_DSP)
     d2_call_ms = _cuda_ms(lambda: reverb.reverb_scan_many(jobs), REPS_DSP)
+    d2_enqueue_ms = _enqueue_pair(lambda: reverb.reverb_scan_many(jobs),
+                                  lambda: None, REPS_DSP)[0]
     d2_three_ms = _cuda_ms(lambda: [reverb.reverb_scan(*j) for j in jobs],
                            REPS_DSP)
     d2_plain_ms = _cuda_ms(lambda: [reverb.reverb_scan_reference(*j)
@@ -1043,21 +1120,28 @@ def _dsp_scans_phase(label):
     d2_bound = _bound(4 * rows * (2 * ring + 2 * AUDIO_FRAMES),
                       D2_OPS * rows * AUDIO_FRAMES)
     d2_chain_ms = AUDIO_FRAMES * D2_CHAIN_OPS * FP32_LATENCY / clock * 1e3
+    d2_probe = _chain_probe(kernels, 1, rows,
+                            (reverb._ONE_MINUS_DAMP, reverb._DAMP, 0.0))
     print(f"phase 18 D1 biquad_scan: bit-equal to its plain version at "
           f"{', '.join(d1_cases)} (cutoffs 20 Hz - 20 kHz, every 8th "
           f"rejected); {s}x{AUDIO_FRAMES}: {d1_ms:.4f} ms device, "
           f"{d1_call_ms:.4f} ms a call, plain {d1_plain_ms:.3f} ms; bound "
-          f"{d1_bound[0] * 1e3:.3f} us ({d1_bound[1]}), chain floor "
-          f"{d1_chain_ms * 1e3:.3f} us reckoned at {FP32_LATENCY} cycles an "
-          f"operation, {clock / 1e6:.0f} MHz ({label})",
-          flush=True)
+          f"{d1_bound[0] * 1e3:.3f} us ({d1_bound[1]}); chain floor "
+          f"measured {d1_probe[0] * AUDIO_FRAMES / 1e3:.3f} us "
+          f"({d1_probe[0]:.3f} ns a step; a {AUDIO_FRAMES}-step probe "
+          f"{d1_probe[1]:.4f} ms device, {d1_probe[2]:.2f} cycles a step), "
+          f"reckoned {d1_chain_ms * 1e3:.3f} us at {FP32_LATENCY} cycles "
+          f"an operation, {clock / 1e6:.0f} MHz ({label})", flush=True)
     print(f"phase 18 D2 reverb_scan: bit-equal to its plain version "
-          f"({'; '.join(d2_cases)}; lc {lc}, la {la}, wrap {wrap}); six "
-          f"rows x {AUDIO_FRAMES}: {d2_ms:.4f} ms device, {d2_call_ms:.4f} "
-          f"ms a call (three calls {d2_three_ms:.4f} ms), plain "
-          f"{d2_plain_ms:.3f} ms; bound {d2_bound[0] * 1e3:.3f} us "
-          f"({d2_bound[1]}), chain floor {d2_chain_ms * 1e3:.3f} us reckoned "
-          f"the same way ({label})", flush=True)
+          f"({'; '.join(d2_cases)}); six rows x {AUDIO_FRAMES} at "
+          f"{AUDIO_RATE} Hz: {d2_ms:.4f} ms device, d2_call_ms "
+          f"{d2_call_ms:.4f} (host enqueue {d2_enqueue_ms:.4f} ms; three "
+          f"calls {d2_three_ms:.4f} ms), plain {d2_plain_ms:.3f} ms; bound "
+          f"{d2_bound[0] * 1e3:.3f} us ({d2_bound[1]}); chain floor "
+          f"measured {d2_probe[0] * AUDIO_FRAMES / 1e3:.3f} us "
+          f"({d2_probe[0]:.3f} ns a step; a {AUDIO_FRAMES}-step probe "
+          f"{d2_probe[1]:.4f} ms device, {d2_probe[2]:.2f} cycles a step), "
+          f"reckoned {d2_chain_ms * 1e3:.3f} us ({label})", flush=True)
     print(f"phase 18 seconds: {time.perf_counter() - t_phase:.1f}")
     return {"d1": (d1_err, d1_ms, d1_plain_ms, d1_bound),
             "d2": (d2_err, d2_ms, d2_plain_ms, d2_bound)}
@@ -1171,9 +1255,23 @@ def _audio_phase(pv, kernels, card, label):
         out = report.output
         _require(out.shape == (len(tone), 2) and np.isfinite(out).all()
                  and np.abs(out).max() > 0, f"{mode}: output {out.shape}")
+        # the block's wait on the player's stream (the download's end) next
+        # to its host wall: the block of the longest wait, and the longest
+        # block
+        waits = player.copy_wait_ms
+        _require(player.stream is not None and len(waits) == blocks,
+                 f"{mode}: {len(waits)} waits on the player's stream, want "
+                 f"one a block ({blocks})")
+        iw = int(np.argmax(waits))
+        ib = int(np.argmax(block_ms))
+        split = (f"max wait on the DSP stream {waits[iw]:.3f} ms (block "
+                 f"{iw}, its wall {block_ms[iw]:.3f} ms); longest block "
+                 f"{block_ms[ib]:.3f} ms (block {ib}, its wait "
+                 f"{waits[ib]:.3f} ms); mean wait "
+                 f"{statistics.mean(waits):.3f} ms")
         reports[mode, paced] = (report, reverb.reverb_scan_many.launches,
                                 ctx.iteration - it0,
-                                sum(ms > budget for ms in block_ms))
+                                sum(ms > budget for ms in block_ms), split)
         if (mode, paced) == ("engine idle", False):
             audio_err = _replay_on_cpu(ctx, eids[0], dcfg, tone, out)
     d2_launches = reports["engine idle", False][1]
@@ -1243,14 +1341,14 @@ def _audio_phase(pv, kernels, card, label):
     _require(d1_launches == rb_calls and dl["biquad_scan_kernel"] == rb_calls,
              f"render_block: D1 launches {d1_launches} (device "
              f"{dl['biquad_scan_kernel']}), want one a call ({rb_calls})")
-    for (mode, paced), (report, n, steps, over) in reports.items():
+    for (mode, paced), (report, n, steps, over, split) in reports.items():
         print(f"phase 19 RealtimePlayer(native=False, reverb=True) on "
               f"Context(device='cuda') {HEADLINE['size']:g} m at "
               f"{HEADLINE['resolution']} Hz, {mode}, "
               f"{'paced' if paced else 'unpaced'} ({steps} steps "
               f"meanwhile): {json.dumps(report.summary())}; blocks over the "
-              f"{budget:.2f} ms budget {over} of {report.blocks}; D2 "
-              f"launches {n}", flush=True)
+              f"{budget:.2f} ms budget {over} of {report.blocks}; {split}; "
+              f"D2 launches {n}", flush=True)
     print(f"phase 19 playout vs the CPU replay of its first "
           f"{AUDIO_CHECK_BLOCKS} blocks: max abs {audio_err:.3g}; "
           f"AudioSourceManager, three clips, no reverbs, {blocks} blocks: "
@@ -2734,7 +2832,7 @@ def main() -> int:
     print(f"phase 17 seconds: {time.perf_counter() - t_phase:.1f}")
 
     # -- 18, 19. the DSP's recurrences and the audio path
-    dsp18 = _dsp_scans_phase(label)
+    dsp18 = _dsp_scans_phase(kernels, label)
     audio19 = _audio_phase(pv, kernels, card, label)
 
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())

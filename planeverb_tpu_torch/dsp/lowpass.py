@@ -10,7 +10,8 @@ Three implementations share this law:
   - ``process``:      streaming numpy biquad with persistent state
   - ``process_scan``: batched biquad over [S, N] blocks, the recurrence
     carried over N. On a CUDA tensor it launches D1 (``csrc/dsp_scan.cu``
-    ``biquad_scan_kernel``: one launch, a thread a source), on a CPU tensor
+    ``biquad_scan_kernel``: one launch, a warp per 32 sources, a lane a
+    source, fed from coalesced shared-memory tiles of x), on a CPU tensor
     it runs its plain version, :func:`process_scan_reference`.
 """
 

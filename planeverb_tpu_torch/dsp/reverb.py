@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -117,7 +119,7 @@ def _check_state(where, x, state: ReverbState, params: ReverbParams):
     for name, t, shape in (("comb_buf", state.comb_buf, (b, 4, lc)),
                            ("comb_lp", state.comb_lp, (b, 4)),
                            ("ap_buf", state.ap_buf, (b, 2, la))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        if t.dtype != torch.float32 or t.shape != shape:
             raise ValueError(f"{where}: {name} must be float32 {shape} for "
                              f"{params.sample_rate} Hz, got {t.dtype} "
                              f"{tuple(t.shape)}")
@@ -167,31 +169,53 @@ def reverb_scan_reference(x, state: ReverbState, params: ReverbParams):
                             ap_buf=ap_buf, pos=pos)
 
 
-def _launch_rows(where, jobs, results):
+# one row of a D2 launch's table, packed as csrc/dsp_scan.cu ``ReverbRow``
+# (kernels.ReverbRow): ten pointers, then the four comb feedbacks as float32
+_ROW = struct.Struct("=10Q4f")
+_TABLES = threading.local()
+
+
+def _table():
+    """This thread's D2 table: one ctypes array of MAX_ROWS rows, made once
+    and refilled by every launch (the launcher copies it into the kernel's
+    parameters before it returns)."""
+    table = getattr(_TABLES, "table", None)
+    if table is None:
+        size = ctypes.sizeof(kernels.ReverbRow)
+        if _ROW.size != size:
+            raise RuntimeError(f"ReverbRow is {size} bytes, the packed row "
+                               f"{_ROW.size}")
+        table = _TABLES.table = (kernels.ReverbRow * MAX_ROWS)()
+    return table
+
+
+def _launch_rows(where, jobs, out, new):
     """One D2 launch over every job's rows (each job ``(x, state,
-    params)``); ``results`` holds the jobs' output tensors, which the
-    launch fills."""
+    params)``, contiguous), into one tensor a kind: ``out`` [rows, N] and
+    ``new`` (a ReverbState of [rows, 4, lc], [rows, 4], [rows, 2, la] and
+    a [jobs] counter), which the launch fills. A row's pointers are its
+    tensor's plus the row's byte offset."""
     params = jobs[0][2]
     lc = max(params.comb_delays)
     la = max(params.allpass_delays)
-    rows = []
-    for (x, state, p), (out, st) in zip(jobs, results):
-        for r in range(x.shape[0]):
-            rows.append(kernels.ReverbRow(
-                x[r].data_ptr(), out[r].data_ptr(),
-                state.comb_buf[r].data_ptr(), st.comb_buf[r].data_ptr(),
-                state.comb_lp[r].data_ptr(), st.comb_lp[r].data_ptr(),
-                state.ap_buf[r].data_ptr(), st.ap_buf[r].data_ptr(),
-                state.pos.data_ptr(), st.pos.data_ptr() if r == 0 else None,
-                (ctypes.c_float * 4)(*(float(np.float32(f))
-                                       for f in p.comb_feedback))))
-    n = jobs[0][0].shape[1]
-    dev = jobs[0][0].device
-    table = (kernels.ReverbRow * len(rows))(*rows)
+    n = out.shape[1]
+    xs, cs, ls, as_ = 4 * n, 16 * lc, 16, 8 * la     # bytes a row
+    o, c, lo, a, q = (t.data_ptr() for t in (out, *new))
+    table = _table()
+    r = 0
+    for j, (x, st, p) in enumerate(jobs):
+        xp, cp, lp, ap, pp = (t.data_ptr() for t in (x, *st))
+        for i in range(x.shape[0]):
+            _ROW.pack_into(table, _ROW.size * r, xp + i * xs, o + r * xs,
+                           cp + i * cs, c + r * cs, lp + i * ls, lo + r * ls,
+                           ap + i * as_, a + r * as_, pp,
+                           q + 4 * j if i == 0 else 0, *p.comb_feedback)
+            r += 1
+    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels.library().pv_reverb_scan(
-            ctypes.addressof(table), len(rows), n, *params.comb_delays,
+            ctypes.addressof(table), r, n, *params.comb_delays,
             *params.allpass_delays, lc, la, math.lcm(lc, la), _DAMP,
             _ONE_MINUS_DAMP, _G, stream)
     kernels.check(err, where)
@@ -207,8 +231,9 @@ def reverb_scan_many(jobs):
     allpasses one set of delays; the feedback may differ). Returns a list
     of ``(wet [B, N], new state)``, the same as one :func:`reverb_scan` a
     job. On a CUDA device one D2 launch takes every row of every job, at
-    most :data:`MAX_ROWS` (more raise ValueError); on the CPU each job runs
-    the plain version.
+    most :data:`MAX_ROWS` (more raise ValueError), on the current stream;
+    the jobs' outputs are views of one tensor a kind (wet, each ring, the
+    memories, the counters). On the CPU each job runs the plain version.
     """
     where = "reverb_scan_many"
     if not jobs:
@@ -227,21 +252,29 @@ def reverb_scan_many(jobs):
     tensors = [t for x, st, _ in jobs for t in (x, *st)]
     if not on_card(where, *tensors):
         return [reverb_scan_reference(x, st, p) for x, st, p in jobs]
-    rows = sum(x.shape[0] for x, _, _ in jobs)
+    counts = [x.shape[0] for x, _, _ in jobs]
+    rows = sum(counts)
     if rows > MAX_ROWS:
         raise ValueError(f"{where}: {rows} rows, one launch takes at most "
                          f"{MAX_ROWS}")
     jobs = [(x.contiguous(), ReverbState(*(t.contiguous() for t in st)), p)
             for x, st, p in jobs]
-    results = [(torch.empty_like(x),
-                ReverbState(torch.empty_like(st.comb_buf),
-                            torch.empty_like(st.comb_lp),
-                            torch.empty_like(st.ap_buf),
-                            torch.empty_like(st.pos)))
-               for x, st, _ in jobs]
-    _launch_rows(where, jobs, results)
+    lc = max(p0.comb_delays)
+    la = max(p0.allpass_delays)
+    dev = jobs[0][0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((rows, n), **f32)
+    new = ReverbState(torch.empty((rows, 4, lc), **f32),
+                      torch.empty((rows, 4), **f32),
+                      torch.empty((rows, 2, la), **f32),
+                      torch.empty((len(jobs),), dtype=torch.int32,
+                                  device=dev))
+    _launch_rows(where, jobs, out, new)
     reverb_scan_many.launches += 1
-    return results
+    return list(zip(out.split_with_sizes(counts),
+                    map(ReverbState, *(t.split_with_sizes(counts)
+                                       for t in new[:3]),
+                        new.pos.unbind(0))))
 
 
 def reverb_scan(x, state: ReverbState, params: ReverbParams):

@@ -86,6 +86,9 @@ _SIGNATURES = {
     "pv_reverb_scan": [_P] + [_I] * 11 + [_F] * 3 + [_P],
     # -> sizeof(ReverbRow) in csrc/dsp_scan.cu
     "pv_reverb_row_bytes": [],
+    # the DSP's chain probes (chip_smoke.py): kind, blocks, N, three
+    # coefficients, out, cycles, stream
+    "pv_dsp_chain_probe": [_I] * 3 + [_F] * 3 + [_P] * 3,
 }
 
 # The library's kernels in the order of csrc/common.cuh DeviceKernel. The

@@ -21,8 +21,11 @@ real-time compliance metric a PortAudio callback would enforce by glitching.
 ``use_planeverb=False`` bypasses the chain (out = in * volume), the
 reference's A/B toggle. ``native=False`` runs the streaming Python renderer
 (dsp/context.py) and then the reverbs' mix (``dsp/reverb.py mix_output``)
-on the Context's device: on a card one D2 launch a block. The native C++
-DSP path is not ported yet (ROADMAP A13): ``native=True`` raises.
+on the Context's device: on a card one D2 launch a block, on a CUDA stream
+of the player's own (high priority, non-blocking), so a block's copies and
+D2 never queue behind the engine's step, which a background loop enqueues
+on the default stream. The native C++ DSP path is not ported yet (ROADMAP
+A13): ``native=True`` raises.
 
 An audio *device* sink plugs in via the ``sink`` callable:
 :class:`AudioDeviceSink` is the ready-made one (optional ``sounddevice`` /
@@ -82,6 +85,16 @@ class RealtimePlayer:
       volume: extra linear gain on top of the emitter's volume_db.
       sink: optional callable(block_ndarray) invoked per processed block
         (an audio-device writer); blocks are also collected in the report.
+
+    On a card (a Context on a CUDA device, reverb on) the player creates
+    one stream, :attr:`stream`, with pinned staging buffers for the four
+    buses' upload and the mix's download: each block copies, mixes and
+    runs D2 there and waits on that stream alone (the wait's ms go to
+    :attr:`copy_wait_ms`, a block each). The reverb states live on that
+    stream for the player's life; a caller who hands them to
+    ``mix_output`` on another stream must order the two streams first
+    (``other.wait_stream(player.stream)``). On the CPU the player creates no
+    stream and touches no ``torch.cuda`` API.
     """
 
     def __init__(self, ctx, eid: int, audio: np.ndarray, rate: int,
@@ -113,6 +126,15 @@ class RealtimePlayer:
 
         self.dsp = DSPContext(cfg)
         self._mix_states = {}
+        self.stream = None
+        self.copy_wait_ms: list[float] = []
+        dev = torch.device(ctx.device)
+        if reverb and dev.type == "cuda":
+            self.stream = torch.cuda.Stream(dev, priority=-1)
+            self._up = torch.empty(4 * self.frames * 2, dtype=torch.float32,
+                                   pin_memory=True)
+            self._down = torch.empty(self.frames * 2, dtype=torch.float32,
+                                     pin_memory=True)
 
     # ------------------------------------------------------------ one block
     def process_block(self, block: np.ndarray) -> np.ndarray:
@@ -138,12 +160,30 @@ class RealtimePlayer:
             return mix
         from planeverb_tpu_torch.dsp.reverb import mix_output
 
-        # the four buses in one copy to the device
-        buses = torch.from_numpy(np.stack([dry[:m], wa[:m], wb[:m],
-                                           wc[:m]])).to(self.ctx.device)
-        mixed, self._mix_states = mix_output(
-            *buses, self.rate, states=self._mix_states)
-        return mixed.cpu().numpy()
+        if self.stream is None:
+            # the four buses in one copy to the device
+            buses = torch.from_numpy(np.stack([dry[:m], wa[:m], wb[:m],
+                                               wc[:m]])).to(self.ctx.device)
+            mixed, self._mix_states = mix_output(
+                *buses, self.rate, states=self._mix_states)
+            return mixed.cpu().numpy()
+        # the four buses staged channel-major in pinned memory ([4, 2, m]:
+        # each channel a row, as D2 takes it, so mix_output copies nothing
+        # to transpose) and copied up, mixed and copied down on the
+        # player's stream; the last block's copies ended with its wait, so
+        # the staging buffers are free
+        up = self._up[:8 * m].view(4, 2, m)
+        np.stack([dry[:m].T, wa[:m].T, wb[:m].T, wc[:m].T], out=up.numpy())
+        down = self._down[:2 * m].view(2, m)
+        with torch.cuda.stream(self.stream):
+            buses = up.to(self.ctx.device, non_blocking=True)
+            mixed, self._mix_states = mix_output(
+                *(b.T for b in buses), self.rate, states=self._mix_states)
+            down.copy_(mixed.T, non_blocking=True)
+        t0 = time.perf_counter()
+        self.stream.synchronize()
+        self.copy_wait_ms.append((time.perf_counter() - t0) * 1e3)
+        return down.numpy().T.copy()
 
     # ------------------------------------------------------------- the pump
     def run(self, realtime: bool = True) -> PlayoutReport:
@@ -186,7 +226,8 @@ class RealtimePlayer:
 
     def close(self) -> None:
         """Nothing to release: the Python renderer holds no native
-        handles (kept for the JAX package's interface)."""
+        handles, and the stream and staging buffers go with the player
+        (kept for the JAX package's interface)."""
 
 
 class AudioDeviceSink:

@@ -195,6 +195,29 @@ def test_realtime_player_is_its_own_chain(ctxs):
                                atol=1e-6)
 
 
+def test_realtime_player_on_the_cpu_makes_no_stream(ctxs, monkeypatch):
+    """On a CPU Context the player creates no CUDA stream, stages nothing
+    in pinned memory and touches no torch.cuda API: each raises here."""
+    import torch
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU player touched torch.cuda")
+
+    for name in ("Stream", "stream", "synchronize", "current_stream",
+                 "device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    ctx = ctxs[0]
+    eid = ctx.emissions.emit(6.5, 0.0, 5.0)
+    try:
+        player = RealtimePlayer(ctx, eid, _tone(1024), RATE, frames=512,
+                                native=False)
+        report = player.run(realtime=False)
+    finally:
+        ctx.emissions.end(eid)
+    assert player.stream is None and player.copy_wait_ms == []
+    assert report.blocks == 2 and np.abs(report.output).max() > 0
+
+
 def test_realtime_player_native_and_sink_guarded(ctxs):
     with pytest.raises(NotImplementedError, match="A13"):
         RealtimePlayer(ctxs[0], 0, _tone(512), RATE)

@@ -403,6 +403,19 @@ def test_launch_calls_match_the_launchers(monkeypatch):
     assert name == "pv_reverb_scan" and args[1:3] == (6, 16)
     assert args[3:11] == (*jobs[0][2].comb_delays,
                           *jobs[0][2].allpass_delays, 1927, 220)
+    # the table: each kind of output one tensor, a row's pointer its
+    # tensor's plus the row's bytes; the counter written by each job's
+    # first row; the feedbacks rounded to float32
+    table = (kernels.ReverbRow * 6).from_address(args[0])
+    for f, stride in (("out", 4 * 16), ("comb_out", 16 * 1927),
+                      ("lp_out", 16), ("ap_out", 8 * 220)):
+        ptrs = [getattr(r, f) for r in table]
+        assert ptrs == [ptrs[0] + i * stride for i in range(6)], f
+    pos = [r.pos_out for r in table]
+    assert pos[1::2] == [None] * 3 and pos[2] == pos[0] + 4
+    for r, (_, st, p) in zip(table, [j for j in jobs for _ in (0, 1)]):
+        assert r.pos_in == st.pos.data_ptr()
+        assert list(r.fb) == [float(np.float32(f)) for f in p.comb_feedback]
     # one launch takes at most MAX_ROWS rows: more raise, and launch nothing
     rows = reverb.MAX_ROWS + 1
     big = (torch.zeros(rows, 16),

@@ -13,6 +13,8 @@ absolute, the counter exactly.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -159,6 +161,93 @@ def test_entry_points_default_to_cuda():
     bus = np.zeros((8, 2), np.float32)
     with pytest.raises((RuntimeError, AssertionError)):
         trv.mix_output(bus, bus, bus, bus, FS)
+
+
+# D2's chunk schedule (planeverb_tpu_torch/csrc/dsp_scan.cu
+# reverb_scan_kernel), read from the source: the longest chunk and the
+# allpasses' threads (the block less warp 0), which cap a sub-chunk
+_CU = (Path(trv.__file__).parent.parent / "csrc" / "dsp_scan.cu").read_text()
+
+
+def _cu_int(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+KCHUNK = _cu_int("kReverbChunk")
+AP_THREADS = _cu_int("kReverbThreads") - _cu_int("kWarp")
+
+
+def _chunk_schedule(x, comb, lp, ap, pos, params):
+    """D2's schedule in NumPy float32, op for op as the kernel: chunks of
+    min(comb delays, KCHUNK) steps, each 1. gathering every comb's output
+    (all reads before any write of the chunk) and their sum, 2. running the
+    four damping chains (the one serial part) and the two allpasses in
+    sub-chunks of min(ad_j, AP_THREADS) steps (all reads, then all
+    writes), 3. writing the comb slots. Returns (out, comb, lp, ap, pos)."""
+    comb, lp, ap = comb.copy(), lp.copy(), ap.copy()
+    b, n = x.shape
+    lc, la = comb.shape[-1], ap.shape[-1]
+    cd, ad = params.comb_delays, params.allpass_delays
+    fb = np.asarray(params.comb_feedback, np.float32)
+    omd = np.float32(1.0) - np.float32(trv.DAMPING)
+    d, g = np.float32(trv.DAMPING), np.float32(trv.ALLPASS_G)
+    out = np.empty_like(x)
+    wc, wa = pos % lc, pos % la
+    chunk = min(min(cd), KCHUNK)
+    for c0 in range(0, n, chunk):
+        m = min(chunk, n - c0)
+        t = np.arange(m)
+        y = np.stack([comb[:, k, (wc + t - cd[k]) % lc] for k in range(4)],
+                     1)                                    # [B, 4, m]
+        s = (((y[:, 0] + y[:, 1]) + y[:, 2]) + y[:, 3]) * np.float32(0.25)
+        lps = np.empty_like(y)
+        for i in range(m):
+            lp = y[:, :, i] * omd + lp * d
+            lps[:, :, i] = lp
+        for j in range(2):
+            sub = min(ad[j], AP_THREADS)
+            for a0 in range(0, m, sub):
+                tt = np.arange(a0, min(a0 + sub, m))
+                w = (wa + tt) % la
+                bv = ap[:, j, (w - ad[j]) % la]      # every read first
+                sv = s[:, tt]
+                ap[:, j, w] = sv + bv * g
+                s[:, tt] = bv - g * sv
+        for k in range(4):
+            comb[:, k, (wc + t) % lc] = x[:, c0 + t] + lps[:, k] * fb[k]
+        out[:, c0:c0 + m] = s
+        wc, wa = (wc + m) % lc, (wa + m) % la
+    wrap = math.lcm(lc, la)
+    return out, comb, lp, ap, (pos + n) % wrap if n else pos
+
+
+@pytest.mark.parametrize("start", ["filled", "before_wrap"])
+@pytest.mark.parametrize("n", [1, 512, 4096])
+@pytest.mark.parametrize("rate", [44100, 48000, 11025, 1000])
+def test_chunk_schedule_equals_the_plain_version(rate, n, start):
+    """D2's chunk schedule gives reverb_scan_reference's bits: at 44.1 and
+    48 kHz (one comb chunk for 512 steps, four for 4096), 11025 Hz (la =
+    55, odd; ad_1 = 18) and 1000 Hz (ad_1 = 1: one-step allpass
+    sub-chunks; chunks of 29 steps), from filled rings at pos 0 and 100
+    steps before the counter's wrap."""
+    params = trv.reverb_params(1.0, rate)
+    lc, la = max(params.comb_delays), max(params.allpass_delays)
+    wrap = math.lcm(lc, la)
+    pos = 0 if start == "filled" else wrap - 100
+    rng = np.random.default_rng(rate + n)
+    comb = (rng.standard_normal((2, 4, lc)) * 0.1).astype(np.float32)
+    lp = (rng.standard_normal((2, 4)) * 0.1).astype(np.float32)
+    ap = (rng.standard_normal((2, 2, la)) * 0.1).astype(np.float32)
+    x = (rng.standard_normal((2, n)) * 0.3).astype(np.float32)
+    want_y, want = trv.reverb_scan_reference(
+        torch.from_numpy(x),
+        trv.ReverbState(*map(torch.from_numpy, (comb, lp, ap)),
+                        torch.tensor(pos, dtype=torch.int32)), params)
+    out, comb, lp, ap, pos = _chunk_schedule(x, comb, lp, ap, pos, params)
+    np.testing.assert_array_equal(out, want_y.numpy())
+    for got, ref in zip((comb, lp, ap), want[:3]):
+        np.testing.assert_array_equal(got, ref.numpy())
+    assert pos == int(want.pos)
 
 
 def test_reverb_numpy_parts_equal_jax():
