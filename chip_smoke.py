@@ -10,7 +10,10 @@ cards: the ghost buffers filled across cards after each round and the
 overlap split's frame copies on side streams. The headline (B5) and the
 126 m world (B6) on a 2x2 mesh (four cards; 2x1 on two) and a 4x1 (or
 2x1) split, every output held to B1 + B2 / B3 + B4 on the first card,
-bit for bit, with launch counts and times; then the last line as below.
+bit for bit, with launch counts and times; then an engine server on the
+card whose ``init`` asks for a mesh of every card at the headline (B5
+behind the wire), its rows bit-equal to an ``init`` on one card; then the
+last line as below.
 
 Builds the CUDA kernels from ``planeverb_tpu_torch/csrc`` and runs, one
 line per phase:
@@ -143,7 +146,39 @@ line per phase:
      native one, not ported), one block a frame for the same 2 s;
      ``render_block`` at 32 and 256
      sources of 512 frames (one D1 launch a call, counted), its buses
-     against the same call on the CPU (rel 1e-5 of each bus's peak).
+     against the same call on the CPU (rel 1e-5 of each bus's peak);
+ 20. the integration front ends: the two native libraries built with g++
+     (seconds), an ``EngineServer(device="cuda")`` driven over TCP at the
+     headline (HugeRoom's boxes by ``add_geometry``, three emitters, five
+     steps, then 50 emitters) by the Python client and by the C ABI client
+     (``NativeEngineClient``, libpvengine), every ``get_output``,
+     ``get_outputs`` row and the impulse response bit-equal to an
+     in-process ``Context(device="cuda")``; the card's launches of a step
+     over the wire, the host wall of a step over the wire against
+     ``Context.step()`` in process and of a 50-emitter poll through each
+     client; the 60 m world over the wire (B3 + B4), ``init`` with the
+     background loop and ``wait_iteration``, ``init`` with a mesh beyond
+     the card count (refused, the connection alive),
+     ``examples/engine_client_demo.c`` built with gcc and run against the
+     server; then the CLI on the card, in this process (launches counted)
+     and as ``python -m planeverb_tpu_torch`` subprocesses (their output
+     equal): ``analyze`` (the in-process Context's readouts exactly),
+     ``batch`` with four listeners (one batched B1 pass, held to a
+     four-view Context at the golden tolerances), ``render --mix`` with D2
+     and with ``--native``; ``ir``, ``convolve``, ``play``, ``sweep``,
+     ``grid`` and ``scenes`` in this process, and ``serve`` and ``view`` as
+     subprocesses on the card (an ``init`` answered, the viewer's state
+     served);
+ 21. the native audio path: ``RealtimePlayer`` with its default
+     ``native=True`` (the C++ renderer and the three C++ reverbs on the
+     host, the engine's step on the card) over phase 19's 2 s, idle and
+     stepping, unpaced and paced, printed beside phase 19's
+     ``native=False`` numbers; its idle output equal to a replay through
+     the same library (max abs 0); ``AudioSourceManager`` with the native
+     renderer and the three ``NativeReverb``s.
+
+Every phase that counts a Context's calibration launch clears the
+free-field cache (``core/free_grid.py::clear_cache``) before that Context.
 
 Every main path's step is followed by one more with the card's launches of
 each kernel counted (``kernels.device_launches``, zeroed just before it).
@@ -169,6 +204,14 @@ HEADLINE = dict(size=25.0, resolution=750, scene="HugeRoom",
                 listener=(12.5, 12.5))
 EMITTERS = [(15.0, 12.5), (10.0, 9.0), (12.5, 20.0)]
 STEPS = 5
+# the engine server (phase 20): the headline's emitters and 47 more for a
+# game's per-frame poll of 50 (positions exact in float32, as the C client
+# sends them), the 60 m world's emitters around its center, and the timed
+# repetitions of a step and a poll over the wire
+WIRE_EMITTERS = EMITTERS + [(2.0 + 2.5 * (i % 9), 3.0 + 4.0 * (i // 9))
+                            for i in range(47)]
+LARGE_EMITTERS = [(33.0, 30.0), (27.0, 26.5), (30.0, 37.0)]
+WIRE_REPS = 10
 # the large worlds (the JAX bench's tiled_large and tiled_xl rows): HugeRoom
 # at 750 Hz, listener at the center; 459^2 x 1470 and 964^2 x 2006 cells
 LARGE = 60.0
@@ -1360,7 +1403,714 @@ def _audio_phase(pv, kernels, card, label):
         + f"; D1 launches {d1_launches} ({label})", flush=True)
     print(f"phase 19 seconds: {time.perf_counter() - t_phase:.1f}")
     del ctx
-    return {"d1_launches": d1_launches, "d2_launches": d2_launches}
+    return {"d1_launches": d1_launches, "d2_launches": d2_launches,
+            "reports": {k: (r.summary(), steps, over) for k, (
+                r, _, steps, over, _) in reports.items()}}
+
+
+# the printed readout of the CLI (sandbox/cli.py::_print_params): each
+# field's pattern and the unit of its last printed digit
+_NUM = r"([-+]?\d+(?:\.\d+)?)"
+_PRINTED = {
+    "occlusion": (rf"occlusion \(dry gain\):\s+{_NUM}", 1e-5),
+    "wet_gain": (rf"wet gain:\s+{_NUM}", 1e-5),
+    "rt60": (rf"rt60:\s+{_NUM}", 1e-5),
+    "lowpass": (rf"lowpass cutoff:\s+{_NUM}", 1e-2),
+    "direction": (rf"direction:\s+\({_NUM}, {_NUM}\)", 1e-4),
+    "source_directivity": (rf"source directivity:\s+\({_NUM}, {_NUM}\)",
+                           1e-4),
+}
+# the golden tolerances (rtol, atol) of tests/test_golden_scenes.py
+_GOLDEN = {"occlusion": (2e-4, 1e-5), "wet_gain": (2e-4, 1e-5),
+           "lowpass": (2e-4, 1e-2), "rt60": (5e-3, 0.0),
+           "source_directivity": (1e-3, 1e-4), "direction": (0.0, 1e-4)}
+
+
+def _printed_params(text):
+    """Every readout block the CLI printed, in order: {field: values}."""
+    import re
+
+    import numpy as np
+
+    return [{k: np.array(re.search(rx, "occlusion (dry gain)" + chunk)
+                         .groups(), float) for k, (rx, _) in _PRINTED.items()}
+            for chunk in text.split("occlusion (dry gain)")[1:]]
+
+
+def _printed_within_golden(got, want, what) -> None:
+    """Printed readouts held at the golden tolerances plus one unit of the
+    last printed digit (each side rounds on its own)."""
+    import numpy as np
+
+    _require(len(got) == len(want) > 0, f"{what}: {len(got)} readouts, "
+                                        f"want {len(want)}")
+    for g, w in zip(got, want):
+        for k, (rtol, atol) in _GOLDEN.items():
+            np.testing.assert_allclose(g[k], w[k], rtol=rtol,
+                                       atol=atol + _PRINTED[k][1],
+                                       err_msg=f"{what}: {k}")
+
+
+def _cli(argv, codes=(0,)):
+    """One ``python -m planeverb_tpu_torch`` command in this process, its
+    standard output captured; its exit code must be one of ``codes``."""
+    import contextlib
+    import io
+
+    from planeverb_tpu_torch.sandbox.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    _require(rc in codes, f"cli {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def counts_of(*fns):
+    """Each wrapper's launch count, by name."""
+    return {f.__name__: f.launches for f in fns}
+
+
+def _integration_phase(pv, kernels, card, label):
+    """Phase 20: the integration front ends on the card. An EngineServer on
+    the card driven over its TCP JSON protocol by the Python client and by
+    the g++-built C ABI client, every answer held bit for bit to an
+    in-process Context; the 60 m world, the background loop and a mesh
+    beyond the card count over the wire; examples/engine_client_demo.c
+    against the server; the CLI in this process (launch counts) and as
+    ``python -m planeverb_tpu_torch`` subprocesses (their output equal)."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch import native
+    from planeverb_tpu_torch.dsp import reverb
+    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
+    from planeverb_tpu_torch.sandbox import cli
+    from planeverb_tpu_torch.sandbox.wav import read_wav, write_wav
+    from planeverb_tpu_torch.server import EngineClient, EngineServer
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    gxx = {}
+    for name, build in (("libpvdsp", native.build_library),
+                        ("libpvengine", native.build_engine_client_library)):
+        t0 = time.perf_counter()
+        build(force=True)
+        gxx[name] = time.perf_counter() - t0
+    size, res = HEADLINE["size"], HEADLINE["resolution"]
+    cfg = pv.PlaneverbConfig(size, size, res)
+    scene = pv.demo_scene(HEADLINE["scene"])
+    lx, lz = HEADLINE["listener"]
+    out_vals = EngineServer._output_vals
+
+    # the in-process reference: the server's defaults (cells publish)
+    ref = pv.Context(cfg, scene=scene, publish="cells", device="cuda")
+    ref.set_listener_position(lx, 0.0, lz)
+    for x, z in WIRE_EMITTERS:
+        ref.emissions.emit(x, 0.0, z)
+    ref.step()
+    shape = f"{ref.params.nx}x{ref.params.ny}x{ref.params.response_length}"
+    want = [out_vals(ref.get_output(e)) for e in range(len(WIRE_EMITTERS))]
+    want_ir = ref.get_impulse_response(*EMITTERS[0])
+    # and four views of one Context (the batched B1 + B2)
+    views = pv.Context(cfg, scene=scene, device="cuda")
+    views.set_listener_positions([(x, 0.0, z) for x, z in VIEWS])
+    for x, z in WIRE_EMITTERS:
+        views.emissions.emit(x, 0.0, z)
+    views.step()
+
+    fdtd_fused.reset_launch_counts()
+    reverb.reverb_scan_many.launches = 0
+    srv = EngineServer(port=0, device="cuda")
+    srv.start_background()
+    host, port = srv.address
+    c = EngineClient(host, port)
+    r = c.call("init", grid_size_x=size, grid_size_y=size,
+               grid_resolution=res, background=False)
+    _require(r["ok"] and r["grid"] == [ref.params.grid_x, ref.params.grid_y],
+             f"init over the wire: {r}")
+    for b in scene.boxes:
+        _require(c.call("add_geometry", x=b.x, y=b.y, width=b.width,
+                        height=b.height, absorption=b.absorption)["ok"],
+                 "add_geometry")
+    c.call("set_listener_position", x=lx, y=0.0, z=lz)
+    ids = [c.call("emit", x=x, z=z)["id"] for x, z in EMITTERS]
+    for _ in range(STEPS):
+        _require(c.call("step")["ok"], "step over the wire")
+    one = [c.call("get_output", id=i) for i in ids]
+    for i, o in zip(ids, one):
+        vals, valid = want[i]
+        _require(o["valid"] == valid and [
+            o["occlusion"], o["wet_gain"], o["rt60"], o["lowpass"],
+            *o["direction"], *o["source_directivity"]] == vals,
+            f"get_output {i} over the wire {o} vs in process {want[i]}")
+    ids += [c.call("emit", x=x, z=z)["id"] for x, z in WIRE_EMITTERS[3:]]
+    step_pass = _device_pass(kernels, lambda: c.call("step"))
+    _require(step_pass == {"fdtd_cluster_kernel": 1,
+                           "rt60_moments_kernel": 1},
+             f"a step over the wire: device launches {step_pass}")
+    rows = c.call("get_outputs")
+    _require(rows["ids"] == ids and rows["count"] == len(WIRE_EMITTERS),
+             f"get_outputs ids {rows['ids']}")
+    got = np.reshape(rows["rows"], (-1, 9))
+    for i, row in zip(ids, got):
+        vals, valid = want[i]
+        _require(list(row[:8]) == vals and row[8] == float(valid),
+                 f"get_outputs row {i}: {row} vs {want[i]}")
+    ir = c.call("get_impulse_response", x=EMITTERS[0][0], z=EMITTERS[0][1])
+    _require(np.array_equal(np.asarray(ir["ir"], np.float32), want_ir)
+             and np.abs(want_ir).max() > 0, "impulse response over the wire")
+    n_valid = sum(v for _, v in want)
+    # the session's steps: B1 + B2 each (the calibration is cached)
+    headline_counts = counts_of(fdtd_fused.fdtd_sim,
+                                   fdtd_fused.rt60_moments)
+    _require(headline_counts == {"fdtd_sim": STEPS + 1,
+                                 "rt60_moments": STEPS + 1},
+             f"the wire session's launches {headline_counts}")
+    # several listeners over the wire: one batched B1 pass and one B2
+    # launch a step, each view's rows equal the four-view Context's
+    r = c.call("set_listener_positions",
+               positions=[[x, 0.0, z] for x, z in VIEWS])
+    _require(r["ok"] and r["count"] == len(VIEWS), f"views: {r}")
+    fdtd_fused.reset_launch_counts()
+    multi_pass = _device_pass(kernels, lambda: c.call("step"))
+    multi_counts = counts_of(fdtd_fused.fdtd_sim_batch,
+                                fdtd_fused.rt60_moments_batch)
+    _require(multi_pass == {"fdtd_cluster_kernel": 1,
+                            "rt60_moments_kernel": 1}
+             and multi_counts == {"fdtd_sim_batch": 1,
+                                  "rt60_moments_batch": 1},
+             f"a four-view step over the wire: device launches "
+             f"{multi_pass}, wrappers {multi_counts}")
+    for b in range(len(VIEWS)):
+        vrows = np.reshape(c.call("get_outputs", listener=b)["rows"],
+                           (-1, 9))
+        for i, row in zip(ids, vrows):
+            vals, valid = out_vals(views.get_output(i, listener=b))
+            _require(list(row[:8]) == vals and row[8] == float(valid),
+                     f"view {b} row {i}: {row} vs {vals}")
+    c.call("set_listener_position", x=lx, y=0.0, z=lz)
+
+    # host walls: a step over the wire against Context.step() in this
+    # process (in turns), and a 50-emitter get_outputs through each client
+    wire_ms, local_ms, py_poll = [], [], []
+    for _ in range(WIRE_REPS):
+        wire_ms.append(_once(lambda: c.call("step"))[1])
+        local_ms.append(_once(ref.step)[1])
+    for _ in range(WIRE_REPS):
+        t0 = time.perf_counter()
+        c.call("get_outputs")
+        py_poll.append((time.perf_counter() - t0) * 1e3)
+
+    # the same session through the C ABI client against the same server
+    nc = native.NativeEngineClient(host, port)
+    _require(nc.init(size, size, resolution=res, background=False)
+             == ref.params.fs, "C ABI init")
+    for b in scene.boxes:
+        nc.add_geometry(b.x, b.y, b.width, b.height, b.absorption)
+    nc.set_listener_position(lx, 0.0, lz)
+    cids = [nc.emit(x, 0.0, z) for x, z in EMITTERS]
+    for _ in range(STEPS):
+        _require(nc.step() > 0, "C ABI step")
+    cids += [nc.emit(x, 0.0, z) for x, z in WIRE_EMITTERS[3:]]
+    nc.step()
+
+    def c_vals(o):
+        return None if o is None else [
+            o["occlusion"], o["wet_gain"], o["rt60"], o["lowpass"],
+            *o["direction"], *o["source_directivity"]]
+
+    c_got = [c_vals(nc.get_output(i)) for i in cids[:3]] \
+        + [c_vals(o) for o in nc.get_outputs(cids)]
+    c_want = [want[i] for i in cids[:3]] + [want[i] for i in cids]
+    c_diff = 0.0
+    for g, (vals, valid) in zip(c_got, c_want):
+        _require((g is not None) == valid, f"C ABI validity {g} vs {valid}")
+        if g is not None:
+            # the server's repr of a float32 value, read back by strtod
+            c_diff = max(c_diff, float(np.abs(
+                np.subtract(g, np.float32(vals))).max()))
+    if c_diff:
+        print(f"phase 20 the C ABI client is NOT bit-equal to the "
+              f"in-process Context: max abs {c_diff:.3g}; held at the "
+              f"golden tolerances instead", flush=True)
+        for g, (vals, valid) in zip(c_got, c_want):
+            if g is not None:
+                for k, (rtol, atol) in (("occlusion", (2e-4, 1e-5)),
+                                        ("wet_gain", (2e-4, 1e-5)),
+                                        ("rt60", (5e-3, 0.0)),
+                                        ("lowpass", (2e-4, 1e-2))):
+                    j = list(_PRINTED).index(k)
+                    np.testing.assert_allclose(g[j], vals[j], rtol=rtol,
+                                               atol=atol, err_msg=k)
+    c_poll = []
+    for _ in range(WIRE_REPS):
+        t0 = time.perf_counter()
+        nc.get_outputs(cids)
+        c_poll.append((time.perf_counter() - t0) * 1e3)
+    nc.close()
+
+    # the 60 m world over the wire: one step of B3 + B4
+    r = c.call("init", grid_size_x=LARGE, grid_size_y=LARGE,
+               grid_resolution=res, background=False)
+    _require(r["ok"], f"60 m init: {r}")
+    for b in scene.boxes:
+        c.call("add_geometry", x=b.x, y=b.y, width=b.width, height=b.height,
+               absorption=b.absorption)
+    c.call("set_listener_position", x=LARGE / 2, y=0.0, z=LARGE / 2)
+    for x, z in LARGE_EMITTERS:
+        c.call("emit", x=x, z=z)
+    fdtd_fused.reset_launch_counts()
+    large_pass = _device_pass(kernels, lambda: c.call("step"))
+    _require(large_pass == {"fdtd_tiled_kernel": 1,
+                            "rt60_moments_tiled_kernel": 1},
+             f"a 60 m step over the wire: device launches {large_pass}")
+    large_counts = counts_of(fdtd_fused.fdtd_sim, fdtd_tiled.fdtd_sim_tiled,
+                                fdtd_tiled.rt60_moments_tiled)
+    _require(large_counts["fdtd_sim_tiled"] == 1
+             and large_counts["rt60_moments_tiled"] == 1, large_counts)
+    large_rows = np.reshape(c.call("get_outputs")["rows"], (-1, 9))
+    _require(len(large_rows) == len(LARGE_EMITTERS)
+             and (large_rows[:, 8] == 1).all()
+             and np.isfinite(large_rows).all(), f"60 m rows {large_rows}")
+    large_grid = r["grid"]
+
+    # the background loop: init with background=true, then wait_iteration
+    r = c.call("init", grid_size_x=size, grid_size_y=size,
+               grid_resolution=res, background=True)
+    _require(r["ok"], f"background init: {r}")
+    _require(not c.call("step")["ok"], "a step beside the background loop")
+    r = c.call("wait_iteration", n=2, timeout=60.0)
+    _require(r["ok"] and r["iteration"] >= 2, f"wait_iteration: {r}")
+    waited = r["iteration"]
+    # a mesh beyond the card count: ok false, the connection alive
+    beyond = torch.cuda.device_count() + 1
+    r = c.call("init", mesh=beyond, grid_size_x=size, grid_size_y=size,
+               grid_resolution=res, background=False)
+    _require(not r["ok"] and "devices" in r["error"], f"mesh {beyond}: {r}")
+    mesh_error = r["error"]
+    _require(c.call("exit")["ok"], "the connection after a refused init")
+
+    # examples/engine_client_demo.c, built with gcc against the port's
+    # library, against the server
+    tmp = tempfile.mkdtemp(prefix="pv_phase20_")
+    lib = native.build_engine_client_library()
+    exe = os.path.join(tmp, "pv_demo")
+    t0 = time.perf_counter()
+    subprocess.run(["gcc", os.path.join(root, "examples",
+                                        "engine_client_demo.c"),
+                    "-o", exe, lib, f"-Wl,-rpath,{os.path.dirname(lib)}"],
+                   check=True, capture_output=True)
+    gcc_s = time.perf_counter() - t0
+    demo = subprocess.run([exe, host, str(port)], capture_output=True,
+                          text=True, timeout=300)
+    _require(demo.returncode == 0 and "batched poll: 50/50 emitters valid "
+             "in one call" in demo.stdout, f"C demo: {demo.stdout} "
+                                           f"{demo.stderr}")
+    c.close()
+    srv.shutdown()
+    server_s = time.perf_counter() - t_phase
+
+    # the CLI: each command in this process (its launches counted) and as
+    # a subprocess (python -m planeverb_tpu_torch, its output equal)
+    common = ["--grid-size", f"{size:g}", "--resolution", str(res),
+              "--engine-device", "cuda"]
+    sources = [a for x, z in EMITTERS for a in ("--source", f"{x:g},{z:g}")]
+    t = np.arange(AUDIO_FRAMES * 8) / AUDIO_RATE
+    wav = os.path.join(tmp, "in.wav")
+    write_wav(wav, (0.4 * np.sin(2 * np.pi * 330.0 * t)).astype(np.float32),
+              AUDIO_RATE)
+    commands = {
+        "analyze": ["analyze", HEADLINE["scene"], "--listener",
+                    f"{lx:g},{lz:g}", *sources, *common],
+        "batch": ["batch", HEADLINE["scene"], *[
+            a for x, z in VIEWS for a in ("--listener", f"{x:g},{z:g}")],
+            *sources, *common],
+    }
+    for flavor, extra in (("render --mix", []),
+                          ("render --mix --native", ["--native"])):
+        commands[flavor] = ["render", HEADLINE["scene"], "--listener",
+                            f"{lx:g},{lz:g}", "--source",
+                            f"{EMITTERS[0][0]:g},{EMITTERS[0][1]:g}", "--in",
+                            wav, "--mix", *common, *extra]
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = {}
+    for name, argv in commands.items():
+        if argv[0] == "render":
+            argv = [*argv, "--out-dir", os.path.join(tmp, "sub " + name)]
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "planeverb_tpu_torch", *argv], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    # the two servers, each printing its address first
+    servers = {name: subprocess.Popen(
+        [sys.executable, "-m", "planeverb_tpu_torch", *argv], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in (
+            ("serve", ["serve", "--port", "0", "--engine-device", "cuda"]),
+            ("view", ["view", HEADLINE["scene"], "--port", "0",
+                      "--listener", f"{lx:g},{lz:g}", *common]))}
+    try:
+        texts, cli_counts = {}, {}
+        wrappers = (fdtd_fused.fdtd_sim, fdtd_fused.rt60_moments,
+                    fdtd_fused.fdtd_sim_batch, fdtd_fused.rt60_moments_batch,
+                    reverb.reverb_scan_many)
+        for name, argv in commands.items():
+            fdtd_fused.reset_launch_counts()
+            reverb.reverb_scan_many.launches = 0
+            if argv[0] == "render":
+                argv = [*argv, "--out-dir", os.path.join(tmp, "in " + name)]
+            texts[name] = _cli(argv)
+            torch.cuda.synchronize()
+            cli_counts[name] = {k: v for k, v in counts_of(*wrappers).items()
+                                if v}
+        # the other subcommands on the card, in this process (play exits
+        # 1 when a block missed its deadline)
+        src = ["--source", f"{EMITTERS[0][0]:g},{EMITTERS[0][1]:g}"]
+        at = [HEADLINE["scene"], "--listener", f"{lx:g},{lz:g}", *src]
+        others = {
+            "ir": ["ir", *at, "-o", os.path.join(tmp, "ir.csv"), "--plot"],
+            "convolve": ["convolve", *at, "--in", wav, "-o",
+                         os.path.join(tmp, "conv.wav")],
+            "play": ["play", *at, "--in", wav, "--no-pace", "-o",
+                     os.path.join(tmp, "played.wav")],
+            "sweep": ["sweep", "--steps", "3", "-o",
+                      os.path.join(tmp, "sweep.csv")],
+            "grid": ["grid", *at],
+        }
+        other_s = {}
+        for name, argv in others.items():
+            t0 = time.perf_counter()
+            _cli([*argv, *common], codes=(0, 1) if name == "play" else (0,))
+            other_s[name] = time.perf_counter() - t0
+        _require(len(_cli(["scenes"]).splitlines()) == 11, "scenes")
+        for name, proc in servers.items():
+            host_port = re.search(r"(\d+\.\d+\.\d+\.\d+):(\d+)",
+                                  proc.stdout.readline())
+            _require(host_port is not None, f"{name}: no address printed")
+            shost, sport = host_port.group(1), int(host_port.group(2))
+            if name == "serve":
+                sc = EngineClient(shost, sport)
+                r = sc.call("init", background=False)
+                sc.close()
+                _require(r["ok"], f"serve: init {r}")
+            else:
+                with urllib.request.urlopen(
+                        f"http://{shost}:{sport}/api/state",
+                        timeout=120) as resp:
+                    state = json.loads(resp.read())
+                _require(state["scene"] == HEADLINE["scene"]
+                         and state["grid"]["nx"] == ref.params.nx,
+                         f"view: state {state['grid']}")
+            proc.terminate()
+            proc.wait(timeout=60)
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            _require(proc.returncode == 0, f"python -m planeverb_tpu_torch "
+                                           f"{name}: {err[-2000:]}")
+            want = texts[name].replace(os.path.join(tmp, "in " + name),
+                                       os.path.join(tmp, "sub " + name))
+            _require(out == want, f"{name}: the subprocess printed\n{out}\n"
+                                  f"in process\n{want}")
+    finally:       # no subprocess outlives the phase, whatever failed
+        for proc in (*procs.values(), *servers.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # what each command's run must have launched: B1 + B2 a step (the
+    # calibration is cached), the batched B1 once for four listeners (their
+    # moments come from ops/batch.py::analyze_listeners, as in the JAX CLI,
+    # not from B2), D2 once for the mix without --native
+    _require(cli_counts == {
+        "analyze": {"fdtd_sim": 1, "rt60_moments": 1},
+        "batch": {"fdtd_sim_batch": 1},
+        "render --mix": {"fdtd_sim": 1, "rt60_moments": 1,
+                         "reverb_scan_many": 1},
+        "render --mix --native": {"fdtd_sim": 1, "rt60_moments": 1}},
+        f"CLI launches {cli_counts}")
+    # analyze prints the in-process Context's readouts, character for
+    # character; batch is held to four views of one Context at the golden
+    # tolerances
+    want_text = _cli_readouts(cli, ref, EMITTERS)
+    _require(texts["analyze"] == want_text,
+             f"analyze printed\n{texts['analyze']}\nthe Context\n{want_text}")
+    want_batch = [_readout_dict(views.result_at(x, z, listener=b))
+                  for b in range(len(VIEWS)) for x, z in EMITTERS]
+    _printed_within_golden(_printed_params(texts["batch"]), want_batch,
+                           "batch vs the four-view Context")
+    batch_equal = texts["batch"].count("occlusion") == len(want_batch) and \
+        all(_readout_text(cli, views.result_at(x, z, listener=b))
+            in texts["batch"] for b in range(len(VIEWS))
+            for x, z in EMITTERS)
+    mixes = {}
+    for name in ("render --mix", "render --mix --native"):
+        for where in ("in", "sub"):
+            d = os.path.join(tmp, f"{where} {name}")
+            with open(os.path.join(d, "mix.wav"), "rb") as f:
+                mixes[where, name] = f.read()
+        _require(mixes["in", name] == mixes["sub", name],
+                 f"{name}: the subprocess's mix.wav differs")
+    mix_py = read_wav(os.path.join(tmp, "in render --mix", "mix.wav"))[0]
+    mix_nat = read_wav(os.path.join(tmp, "in render --mix --native",
+                                    "mix.wav"))[0]
+    mix_diff = float(np.abs(mix_py - mix_nat).max())
+    _require(np.abs(mix_py).max() > 0 and mix_diff <= 5e-4,
+             f"render --mix: D2 vs the C++ reverbs max abs {mix_diff}")
+    cli_s = time.perf_counter() - t_phase - server_s
+    shutil.rmtree(tmp)
+    del ref, views
+    torch.cuda.empty_cache()
+
+    print(f"phase 20 native builds (g++ -O3 -march=native): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in gxx.items())
+          + f"; engine_client_demo.c gcc {gcc_s:.2f} s", flush=True)
+    print(f"phase 20 EngineServer(device='cuda') {shape} "
+          f"HugeRoom over TCP: init, {len(scene.boxes)} add_geometry, "
+          f"{len(EMITTERS)} then {len(WIRE_EMITTERS)} emitters "
+          f"({n_valid} valid), {STEPS + 1} steps: every get_output, "
+          f"get_outputs row and the impulse response over the wire "
+          f"(Python client) bit-equal to Context(device='cuda') in process; "
+          f"C ABI client (libpvengine) bit-equal {c_diff == 0.0} (max abs "
+          f"{c_diff:.3g}); launches {headline_counts} (wrappers), device "
+          f"launches of a step over the wire {step_pass}; "
+          f"set_listener_positions with {len(VIEWS)} views: device "
+          f"launches of a step {multi_pass}, wrappers {multi_counts}, every "
+          f"view's get_outputs rows bit-equal to a {len(VIEWS)}-view "
+          f"Context; host wall "
+          f"medians of {WIRE_REPS}: a step over the wire "
+          f"{statistics.median(wire_ms):.3f} ms vs Context.step() in "
+          f"process {statistics.median(local_ms):.3f} ms (in turns); "
+          f"get_outputs of {len(WIRE_EMITTERS)} emitters, Python client "
+          f"{statistics.median(py_poll):.3f} ms, C ABI client "
+          f"{statistics.median(c_poll):.3f} ms ({card})", flush=True)
+    print(f"phase 20 over the wire: {LARGE:g} m world {large_grid} "
+          f"launches {large_counts}, device launches of a step "
+          f"{large_pass}; background init reached iteration {waited} "
+          f"through wait_iteration; init mesh={beyond} refused "
+          f"({mesh_error!r}) with the connection alive; "
+          f"engine_client_demo.c: {demo.stdout.strip().splitlines()[-1]}",
+          flush=True)
+    print(f"phase 20 CLI on the card (python -m planeverb_tpu_torch, the "
+          f"subprocesses' output equal to the same commands in process): "
+          f"launches {cli_counts}; analyze prints the in-process Context's "
+          f"readouts exactly; batch (4 listeners) within the golden "
+          f"tolerances of a four-view Context (text identical "
+          f"{batch_equal}); render --mix D2 vs --native C++ reverbs max "
+          f"abs {mix_diff:.3g}; on the card in process too: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in other_s.items())
+          + f", scenes; python -m planeverb_tpu_torch serve (an init "
+          f"answered) and view (its state served); server part "
+          f"{server_s:.1f} s, CLI part {cli_s:.1f} s", flush=True)
+    print(f"phase 20 seconds: {time.perf_counter() - t_phase:.1f}")
+    return {"headline": headline_counts, "views": multi_counts,
+            "large": large_counts, "cli": cli_counts}
+
+
+def _readout_text(cli, out):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli._print_params(out)
+    return buf.getvalue()
+
+
+def _cli_readouts(cli, ctx, sources):
+    """What ``analyze`` prints for these sources, from ctx's readouts."""
+    return "".join(f"source ({x:g}, {z:g}):\n"
+                   + _readout_text(cli, ctx.result_at(x, z))
+                   for x, z in sources)
+
+
+def _readout_dict(out):
+    import numpy as np
+
+    return {"occlusion": np.array([out.occlusion]),
+            "wet_gain": np.array([out.wet_gain]),
+            "rt60": np.array([out.rt60]), "lowpass": np.array([out.lowpass]),
+            "direction": np.array([out.direction.x, out.direction.y]),
+            "source_directivity": np.array([out.source_directivity.x,
+                                            out.source_directivity.y])}
+
+
+def _native_audio_phase(pv, kernels, card, label, python_dsp):
+    """Phase 21: the native audio path on the card's Context: the default
+    RealtimePlayer (the C++ renderer and reverbs on the host, the engine's
+    step on the card) over the same 2 s as phase 19, idle and stepping,
+    unpaced and paced, beside phase 19's native=False numbers; its output
+    held to a CPU replay through the same library; AudioSourceManager with
+    the three native reverbs."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch.dsp import reverb
+    from planeverb_tpu_torch.dsp.gains import T_ER_1, T_ER_2, T_ER_3
+    from planeverb_tpu_torch.native import NativeDSPContext, NativeReverb
+    from planeverb_tpu_torch.sandbox.audio_manager import AudioSourceManager
+    from planeverb_tpu_torch.sandbox.realtime import RealtimePlayer
+
+    t_phase = time.perf_counter()
+    size, res = HEADLINE["size"], HEADLINE["resolution"]
+    ctx = pv.Context(pv.PlaneverbConfig(size, size, res),
+                     scene=pv.demo_scene(HEADLINE["scene"]), device="cuda")
+    lx, lz = HEADLINE["listener"]
+    ctx.set_listener_position(lx, 0.0, lz)
+    eids = [ctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
+    ctx.step()
+    dcfg = pv.PlaneverbDSPConfig(max_callback_length=AUDIO_FRAMES,
+                                 sampling_rate=AUDIO_RATE)
+    t = np.arange(int(AUDIO_SECONDS * AUDIO_RATE)) / AUDIO_RATE
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    blocks = -(-len(tone) // AUDIO_FRAMES)
+    budget = AUDIO_FRAMES / AUDIO_RATE * 1e3
+    rt60s = (T_ER_1, T_ER_2, T_ER_3)
+    reports = {}
+    for mode, paced in (("engine idle", False), ("engine stepping", False),
+                        ("engine idle", True), ("engine stepping", True)):
+        reverb.reverb_scan_many.launches = 0
+        it0 = ctx.iteration
+        if mode == "engine stepping":
+            ctx.start()
+        player = RealtimePlayer(ctx, eids[0], tone, AUDIO_RATE,
+                                frames=AUDIO_FRAMES)
+        _require(isinstance(player.dsp, NativeDSPContext)
+                 and player.stream is None, "the default player is native")
+        block_ms = []
+
+        def timed(block, process=player.process_block, block_ms=block_ms):
+            t0 = time.perf_counter()
+            out = process(block)
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        player.process_block = timed
+        report = player.run(realtime=paced)
+        player.close()
+        if mode == "engine stepping":
+            ctx.stop()
+            _require(ctx.error is None, f"background loop: {ctx.error}")
+            _require(ctx.iteration > it0, "the engine did not step")
+        _require(reverb.reverb_scan_many.launches == 0,
+                 "the native player launched D2")
+        out = report.output
+        _require(out.shape == (len(tone), 2) and np.isfinite(out).all()
+                 and np.abs(out).max() > 0, f"{mode}: output {out.shape}")
+        reports[mode, paced] = (report.summary(), ctx.iteration - it0,
+                                sum(ms > budget for ms in block_ms))
+        if (mode, paced) == ("engine idle", False):
+            # the CPU replay: the same native renderer and reverbs driven by
+            # hand from the card's parameters
+            dsp = NativeDSPContext(dcfg)
+            revs = [NativeReverb(r, AUDIO_RATE) for r in rt60s]
+            stereo = np.stack([tone, tone], -1)
+            chunks = []
+            for b in range(blocks):
+                block = stereo[b * AUDIO_FRAMES:(b + 1) * AUDIO_FRAMES]
+                o, gain = ctx.sync_dsp(dsp)[eids[0]]
+                dsp.submit_source(eids[0], o, block * np.float32(gain))
+                dry, wa, wb, wc = dsp.get_output()
+                mix = dry[:len(block)].copy()
+                for rev, bus in zip(revs, (wa, wb, wc)):
+                    rev.process_add(np.ascontiguousarray(bus[:len(block)]),
+                                    mix)
+                chunks.append(mix)
+            replay_err = float(np.abs(out - np.concatenate(chunks)).max())
+            _require(replay_err == 0.0,
+                     f"native playout vs its CPU replay: {replay_err}")
+
+    mgr = AudioSourceManager(ctx, NativeDSPContext(dcfg),
+                             reverbs=[NativeReverb(r, AUDIO_RATE)
+                                      for r in rt60s])
+    for eid, f in zip(eids, (440.0, 660.0, 220.0)):
+        clip = (0.3 * np.sin(2 * np.pi * f * t)).astype(np.float32)
+        mgr.play(eid, clip, loop=False)
+    mgr_ms, tail = [], []
+    for _ in range(blocks + 8):
+        t0 = time.perf_counter()
+        m = mgr.process_block(AUDIO_FRAMES, end_finished_emissions=False)
+        mgr_ms.append((time.perf_counter() - t0) * 1e3)
+        _require(np.isfinite(m).all(), "manager block")
+        tail.append(float(np.abs(m).max()))
+    _require(mgr.active_sources() == [] and tail[-1] > 0,
+             "the clips did not finish, or the reverbs left no tail")
+    torch.cuda.synchronize()
+    for key, (summary, steps, over) in reports.items():
+        py_summary, py_steps, py_over = python_dsp[key]
+        mode, paced = key
+        print(f"phase 21 RealtimePlayer(native=True) on "
+              f"Context(device='cuda') {size:g} m at {res} Hz, {mode}, "
+              f"{'paced' if paced else 'unpaced'} ({steps} steps "
+              f"meanwhile): mean {summary['mean_process_ms']:.3f} ms, max "
+              f"{summary['max_process_ms']:.3f} ms, blocks over the "
+              f"{budget:.2f} ms budget {over} of {summary['blocks']}, "
+              f"underruns {summary['underruns']} | native=False (phase "
+              f"19): mean {py_summary['mean_process_ms']:.3f} ms, max "
+              f"{py_summary['max_process_ms']:.3f} ms, over {py_over}, "
+              f"underruns {py_summary['underruns']} ({py_steps} steps); "
+              f"D2 launches 0", flush=True)
+    print(f"phase 21 native playout vs its CPU replay (the same library, "
+          f"{blocks} blocks): max abs {replay_err:.3g}; AudioSourceManager "
+          f"with NativeDSPContext and the three NativeReverbs, three clips, "
+          f"{len(mgr_ms)} blocks: mean {statistics.mean(mgr_ms):.3f} ms, "
+          f"max {max(mgr_ms):.3f} ms a block, the reverbs' tail after the "
+          f"clips {tail[-1]:.3g} ({card})", flush=True)
+    print(f"phase 21 seconds: {time.perf_counter() - t_phase:.1f}")
+    del ctx
+
+
+def _server_across_cards(pv, card) -> None:
+    """``--cards``: one server init with a mesh of every card at the
+    headline (B5 behind the wire), its outputs bit-equal to one card's."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch.parallel import solver_fused
+    from planeverb_tpu_torch.server import EngineClient, EngineServer
+
+    n = torch.cuda.device_count()
+    size, res = HEADLINE["size"], HEADLINE["resolution"]
+    srv = EngineServer(port=0, device="cuda")
+    srv.start_background()
+    c = EngineClient(*srv.address)
+    rows = {}
+    try:
+        for mesh in (n, 0):
+            solver_fused.sharded_round.launches = 0
+            r = c.call("init", grid_size_x=size, grid_size_y=size,
+                       grid_resolution=res, background=False, mesh=mesh)
+            _require(r["ok"] and ("mesh" in r) == (mesh > 0),
+                     f"init mesh={mesh}: {r}")
+            for b in pv.demo_scene(HEADLINE["scene"]).boxes:
+                c.call("add_geometry", x=b.x, y=b.y, width=b.width,
+                       height=b.height, absorption=b.absorption)
+            c.call("set_listener_position", x=HEADLINE["listener"][0],
+                   z=HEADLINE["listener"][1])
+            for x, z in WIRE_EMITTERS:
+                c.call("emit", x=x, z=z)
+            t0 = time.perf_counter()
+            _require(c.call("step")["ok"], "step")
+            wall = (time.perf_counter() - t0) * 1e3
+            rows[mesh] = (np.reshape(c.call("get_outputs")["rows"],
+                                     (-1, 9)), r.get("mesh"), wall,
+                          solver_fused.sharded_round.launches)
+        _require(rows[n][3] > 0, "the mesh init ran no B5 round")
+        _require(np.array_equal(rows[n][0], rows[0][0]),
+                 "the mesh server's rows differ from one card's")
+    finally:
+        c.close()
+        srv.shutdown()
+    print(f"cards EngineServer init mesh={n} ({rows[n][1]}) at the "
+          f"headline: {len(WIRE_EMITTERS)} get_outputs rows bit-equal to "
+          f"mesh=0 (one card); B5 round launches {rows[n][3]}; the first "
+          f"step over the wire {rows[n][2]:.3f} ms vs {rows[0][2]:.3f} ms "
+          f"(host wall, voxelize included; {n} x {card})", flush=True)
 
 
 def main() -> int:
@@ -1382,6 +2132,7 @@ def main() -> int:
     import planeverb_tpu_torch as pv
     from planeverb_tpu_torch import kernels
     from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.core import free_grid
     from planeverb_tpu_torch.ops import (analyzer, fdtd_fused, fdtd_tiled,
                                          voxelize)
 
@@ -1399,6 +2150,7 @@ def main() -> int:
     if "--cards" in sys.argv[1:]:
         kernels.build(force=True)
         _across_cards(pv, kernels, torch.device("cuda", 0), card)
+        _server_across_cards(pv, card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1555,6 +2307,7 @@ def main() -> int:
     # -- 5. the main path: Context on the card
     fdtd_fused.reset_launch_counts()
     lx, lz = HEADLINE["listener"]
+    free_grid.clear_cache()   # the calibration is counted
     ctx = pv.Context(cfg, scene=scene, device="cuda")
     _require(fdtd_fused.fdtd_sim.launches == 1, "calibration must run B1 once")
     _require(fdtd_fused.rt60_moments.launches == 0, "B2 ran at init")
@@ -1789,6 +2542,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     xcfg = pv.PlaneverbConfig(XL, XL, 750)
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     xctx = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"),
                       publish="cells", device="cuda")
     xl_lx = xl_lz = XL / 2
@@ -2132,6 +2886,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     mesh4 = parallel.grid_mesh(["cuda:0"] * 4, (2, 2))
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     mctx = pv.Context(cfg, scene=scene, mesh=mesh4)
     mctx.set_listener_position(lx, 0.0, lz)
     meids = [mctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
@@ -2181,6 +2936,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     xm = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
                     mesh=mesh4)
     xm.set_listener_position(xl_lx, 0.0, xl_lz)
@@ -2225,9 +2981,6 @@ def main() -> int:
     del xm
     torch.cuda.empty_cache()
     print(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
-
-    def counts_of(*fns):
-        return {f.__name__: f.launches for f in fns}
 
     sim_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch,
                fdtd_fused.rt60_moments, fdtd_fused.rt60_moments_batch,
@@ -2312,6 +3065,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     positions = [(x, 0.0, z) for x, z in VIEWS]
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     vctx = pv.Context(cfg, scene=scene, device="cuda")
     vctx.set_listener_positions(positions)
     veids = [vctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
@@ -2376,6 +3130,7 @@ def main() -> int:
     # one recording at a time
     torch.cuda.reset_peak_memory_stats()
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     xv = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
                     device="cuda")
     xv.set_listener_positions([(x, 0.0, z) for x, z in XL_VIEWS])
@@ -2412,6 +3167,7 @@ def main() -> int:
           f"phase 9's ({label})", flush=True)
     # the headline on the 2x2 mesh of the card, two views
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     mv = pv.Context(cfg, scene=scene, mesh=mesh4)
     mv.set_listener_positions(positions[:MESH_VIEWS])
     mvev, mvwall = zip(*(_once(mv.step) for _ in range(STEPS)))
@@ -2738,6 +3494,7 @@ def main() -> int:
     mesh41 = parallel.grid_mesh(["cuda:0"] * 4, OVERLAP_MESHES[0])
     ctx_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch, *split_fns)
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     sctx = pv.Context(cfg, scene=scene, mesh=mesh41)
     _require(sctx._overlap and sctx._halo == SHARD_HALO,
              f"Context on 4x1: overlap {sctx._overlap}, halo {sctx._halo}")
@@ -2767,6 +3524,7 @@ def main() -> int:
     b5o_launches = s_launches["sharded_round"]
     del sctx, one
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     sv = pv.Context(cfg, scene=scene, mesh=mesh41)
     sv.set_listener_positions(positions[:MESH_VIEWS])
     svev, _ = zip(*(_once(sv.step) for _ in range(2)))
@@ -2795,6 +3553,7 @@ def main() -> int:
           flush=True)
     # ... and the 126 m world on the same mesh, cells publish (the B6 split)
     fdtd_fused.reset_launch_counts()
+    free_grid.clear_cache()   # the calibration is counted
     xs = pv.Context(xcfg, scene=pv.demo_scene("HugeRoom"), publish="cells",
                     mesh=mesh41)
     _require(xs._overlap, "126 m Context on 4x1 must take the split")
@@ -2834,6 +3593,9 @@ def main() -> int:
     # -- 18, 19. the DSP's recurrences and the audio path
     dsp18 = _dsp_scans_phase(kernels, label)
     audio19 = _audio_phase(pv, kernels, card, label)
+    # -- 20, 21. the integration front ends and the native audio path
+    _integration_phase(pv, kernels, card, label)
+    _native_audio_phase(pv, kernels, card, label, audio19["reports"])
 
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]

@@ -60,7 +60,7 @@ def exit() -> None:
 
 def change_settings(config: PlaneverbConfig) -> Context:
     """Full teardown + re-init (Planeverb::ChangeSettings, PvContext.cpp:45-49)
-    on the same device. The new Context runs its own calibration pass."""
+    on the same device."""
     background = _context is not None and _context._thread is not None
     device = _context.device if _context is not None else None
     exit()

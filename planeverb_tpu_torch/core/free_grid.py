@@ -11,6 +11,10 @@ Grids larger than :data:`CAL_SIZE_M` calibrate on a fixed CAL_SIZE_M-square
 empty domain: EFree does not depend on grid extent once the boundary is
 beyond the echo horizon of the 1 m probe (see the JAX module's docstring).
 Grids at or below CAL_SIZE_M keep the reference's full-grid behavior.
+
+The result is cached per calibration configuration and device, as the JAX
+module caches it per configuration: the server makes a Context on every
+``init``, the CLI one per command, ``api.change_settings`` one per call.
 """
 
 from __future__ import annotations
@@ -23,9 +27,21 @@ from planeverb_tpu_torch.config import (GridParams, PlaneverbConfig,
 from planeverb_tpu_torch.ops import voxelize
 from planeverb_tpu_torch.ops.fdtd_fused import simulate_auto
 
-__all__ = ["calibrate_free_field", "CAL_SIZE_M"]
+__all__ = ["calibrate_free_field", "clear_cache", "CAL_SIZE_M"]
 
 CAL_SIZE_M = 25.0
+
+_CACHE: dict[tuple, float] = {}
+
+
+def _key(params: GridParams, device: torch.device) -> tuple:
+    """The JAX module's key plus the device: the card's ``log``/``pow``
+    differ from the CPU's by ulps, so a value computed on one never
+    answers the other."""
+    return (params.resolution, params.grid_x, params.grid_y,
+            params.response_length, params.boundary_type,
+            params.grid_offset_x, params.grid_offset_y,
+            device.type, device.index)
 
 
 def _cal_params(params: GridParams) -> GridParams:
@@ -76,16 +92,22 @@ def _efree_on(params: GridParams, device: torch.device) -> float:
 
 
 def calibrate_free_field(params: GridParams, device="cuda") -> float:
-    """EFree for this grid configuration, by one simulation on ``device``
-    (default the card; ``device="cpu"`` runs the plain version). A CUDA
-    device without a card raises: there is no silent move to the CPU.
-
-    Uncached: each call runs the calibration sim (one B1 launch on a CUDA
-    device), so a Context's calibration is always visible in the kernel's
-    launch count."""
+    """EFree for this grid configuration on ``device`` (default the card;
+    ``device="cpu"`` runs the plain version): one simulation the first time
+    (one B1 launch on a CUDA device), the cached value after that. A CUDA
+    device without a card raises: there is no silent move to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"calibrate_free_field(device={str(device)!r}): no CUDA device is "
             f"available; pass device='cpu' to run the plain version")
-    return _efree_on(_cal_params(params), device)
+    cal = _cal_params(params)
+    key = _key(cal, device)
+    if key not in _CACHE:
+        _CACHE[key] = _efree_on(cal, device)
+    return _CACHE[key]
+
+
+def clear_cache() -> None:
+    """Forget every cached EFree: the next calibration simulates again."""
+    _CACHE.clear()

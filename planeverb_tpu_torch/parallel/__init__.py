@@ -12,7 +12,8 @@ ported yet (ROADMAP A14).
 """
 
 from planeverb_tpu_torch.parallel.mesh import (Mesh, factor_mesh, grid_mesh,
-                                               mesh_from_count, pad_to_mesh)
+                                               mesh_for, mesh_from_count,
+                                               pad_to_mesh)
 from planeverb_tpu_torch.parallel.solver import assemble, shard_fields
 from planeverb_tpu_torch.parallel.solver_fused import (
     Sharded, pipeline_sharded, simulate_moments_sharded,
@@ -20,7 +21,7 @@ from planeverb_tpu_torch.parallel.solver_fused import (
     simulate_sharded_reference)
 
 __all__ = ["Mesh", "Sharded", "assemble", "factor_mesh", "grid_mesh",
-           "mesh_from_count", "pad_to_mesh", "pipeline_sharded",
+           "mesh_for", "mesh_from_count", "pad_to_mesh", "pipeline_sharded",
            "shard_fields", "simulate_moments_sharded",
            "simulate_moments_sharded_reference", "simulate_sharded_fused",
            "simulate_sharded_reference"]

@@ -14,8 +14,8 @@ import math
 
 import torch
 
-__all__ = ["Mesh", "factor_mesh", "grid_mesh", "mesh_from_count",
-           "pad_to_mesh"]
+__all__ = ["Mesh", "factor_mesh", "grid_mesh", "mesh_for",
+           "mesh_from_count", "pad_to_mesh"]
 
 
 def _device(d) -> torch.device:
@@ -109,6 +109,16 @@ def mesh_from_count(n_devices: int) -> Mesh:
         raise ValueError(f"mesh wants {n_devices} devices, "
                          f"only {len(devices)} available")
     return grid_mesh(devices[:n_devices])
+
+
+def mesh_for(n_devices: int, device) -> Mesh:
+    """The front ends' mesh of ``n_devices`` for an engine on ``device``:
+    that many distinct cards on a CUDA device (:func:`mesh_from_count`,
+    which raises ``ValueError`` beyond the host's count), that many
+    positions of the CPU on the CPU."""
+    if torch.device(device).type == "cpu":
+        return grid_mesh(["cpu"] * n_devices)
+    return mesh_from_count(n_devices)
 
 
 def pad_to_mesh(nx: int, ny: int, mesh: Mesh,

@@ -19,13 +19,14 @@ callback budget (frames/rate per block) and the same chain:
 A block whose processing runs past its deadline is an underrun — the
 real-time compliance metric a PortAudio callback would enforce by glitching.
 ``use_planeverb=False`` bypasses the chain (out = in * volume), the
-reference's A/B toggle. ``native=False`` runs the streaming Python renderer
-(dsp/context.py) and then the reverbs' mix (``dsp/reverb.py mix_output``)
-on the Context's device: on a card one D2 launch a block, on a CUDA stream
-of the player's own (high priority, non-blocking), so a block's copies and
-D2 never queue behind the engine's step, which a background loop enqueues
-on the default stream. The native C++ DSP path is not ported yet (ROADMAP
-A13): ``native=True`` raises.
+reference's A/B toggle. The native C++ DSP path (planeverb_tpu_torch.native:
+the renderer and the three reverbs, on the host) is the default; the
+engine's step still runs on the Context's device. ``native=False`` runs the
+streaming Python renderer (dsp/context.py) and then the reverbs' mix
+(``dsp/reverb.py mix_output``) on the Context's device: on a card one D2
+launch a block, on a CUDA stream of the player's own (high priority,
+non-blocking), so a block's copies and D2 never queue behind the engine's
+step, which a background loop enqueues on the default stream.
 
 An audio *device* sink plugs in via the ``sink`` callable:
 :class:`AudioDeviceSink` is the ready-made one (optional ``sounddevice`` /
@@ -78,23 +79,23 @@ class RealtimePlayer:
       rate: sample rate in Hz (reference: 44100, Util.h:6).
       frames: frames per block (reference: 512, Util.h:9).
       use_planeverb: False = A/B bypass (out = in * volume only).
-      native: route through the C++ DSP + reverbs, not ported yet
-        (raises NotImplementedError); False = Python streaming renderer +
+      native: route through the C++ DSP + reverbs (NativeDSPContext/
+        NativeReverb, on the host); False = Python streaming renderer +
         the reverbs on the Context's device.
       reverb: include the three canonical reverb tails in the mix.
       volume: extra linear gain on top of the emitter's volume_db.
       sink: optional callable(block_ndarray) invoked per processed block
         (an audio-device writer); blocks are also collected in the report.
 
-    On a card (a Context on a CUDA device, reverb on) the player creates
-    one stream, :attr:`stream`, with pinned staging buffers for the four
-    buses' upload and the mix's download: each block copies, mixes and
-    runs D2 there and waits on that stream alone (the wait's ms go to
-    :attr:`copy_wait_ms`, a block each). The reverb states live on that
-    stream for the player's life; a caller who hands them to
+    With ``native=False`` on a card (a Context on a CUDA device, reverb
+    on) the player creates one stream, :attr:`stream`, with pinned staging
+    buffers for the four buses' upload and the mix's download: each block
+    copies, mixes and runs D2 there and waits on that stream alone (the
+    wait's ms go to :attr:`copy_wait_ms`, a block each). The reverb states
+    live on that stream for the player's life; a caller who hands them to
     ``mix_output`` on another stream must order the two streams first
-    (``other.wait_stream(player.stream)``). On the CPU the player creates no
-    stream and touches no ``torch.cuda`` API.
+    (``other.wait_stream(player.stream)``). On the CPU, and with the native
+    DSP, the player creates no stream and touches no ``torch.cuda`` API.
     """
 
     def __init__(self, ctx, eid: int, audio: np.ndarray, rate: int,
@@ -102,11 +103,6 @@ class RealtimePlayer:
                  native: bool = True, reverb: bool = True,
                  volume: float = 1.0, sink=None):
         from planeverb_tpu_torch.config import PlaneverbDSPConfig
-
-        if native:
-            raise NotImplementedError(
-                "RealtimePlayer(native=True): the native C++ DSP is not "
-                "ported yet (ROADMAP A13); pass native=False")
 
         audio = np.asarray(audio, np.float32)
         if audio.ndim == 1:
@@ -120,14 +116,24 @@ class RealtimePlayer:
         self.reverb = reverb
         self.volume = float(volume)
         self.sink = sink
+        self._native = native
         cfg = PlaneverbDSPConfig(max_callback_length=self.frames,
                                  sampling_rate=self.rate)
+        self.stream = None
+        self.copy_wait_ms: list[float] = []
+        if native:
+            from planeverb_tpu_torch.native import (NativeDSPContext,
+                                                    NativeReverb)
+
+            self.dsp = NativeDSPContext(cfg)
+            self._reverbs = [NativeReverb(rt60, self.rate)
+                             for rt60 in _canonical_rt60s()] if reverb else []
+            return
         from planeverb_tpu_torch.dsp import DSPContext
 
         self.dsp = DSPContext(cfg)
+        self._reverbs = None
         self._mix_states = {}
-        self.stream = None
-        self.copy_wait_ms: list[float] = []
         dev = torch.device(ctx.device)
         if reverb and dev.type == "cuda":
             self.stream = torch.cuda.Stream(dev, priority=-1)
@@ -157,6 +163,10 @@ class RealtimePlayer:
         m = len(block)
         mix = np.array(dry[:m], np.float32, copy=True)
         if not self.reverb:
+            return mix
+        if self._reverbs is not None:
+            for rev, bus in zip(self._reverbs, (wa, wb, wc)):
+                rev.process_add(np.asarray(bus[:m], np.float32), mix)
             return mix
         from planeverb_tpu_torch.dsp.reverb import mix_output
 
@@ -225,9 +235,19 @@ class RealtimePlayer:
             duration_s=n / self.rate, output=out)
 
     def close(self) -> None:
-        """Nothing to release: the Python renderer holds no native
-        handles, and the stream and staging buffers go with the player
-        (kept for the JAX package's interface)."""
+        """Release the native renderer's and reverbs' handles (the Python
+        renderer holds none; its stream and staging buffers go with the
+        player)."""
+        if self._native:
+            self.dsp.close()
+            for rev in self._reverbs:
+                rev.close()
+
+
+def _canonical_rt60s():
+    from planeverb_tpu_torch.dsp.gains import T_ER_1, T_ER_2, T_ER_3
+
+    return (T_ER_1, T_ER_2, T_ER_3)
 
 
 class AudioDeviceSink:

@@ -219,8 +219,17 @@ def test_realtime_player_on_the_cpu_makes_no_stream(ctxs, monkeypatch):
 
 
 def test_realtime_player_native_and_sink_guarded(ctxs):
-    with pytest.raises(NotImplementedError, match="A13"):
-        RealtimePlayer(ctxs[0], 0, _tone(512), RATE)
+    """The default player is the native one (the C++ renderer and
+    reverbs, tests/test_torch_native.py holds its output); the live sink
+    needs the optional sounddevice package."""
+    from planeverb_tpu_torch.native import NativeDSPContext
+
+    player = RealtimePlayer(ctxs[0], 0, _tone(512), RATE)
+    try:
+        assert isinstance(player.dsp, NativeDSPContext)
+        assert len(player._reverbs) == 3
+    finally:
+        player.close()
     import importlib.util
 
     if importlib.util.find_spec("sounddevice") is None:

@@ -111,9 +111,11 @@ def test_tiled_route_matches(engines, monkeypatch):
     tiles with a 4-cell halo, so several windows), the published grids
     equal the untiled Context's bit for bit and hold the JAX Context's
     golden tolerances."""
+    from planeverb_tpu_torch.core import free_grid
     from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
 
     j, t = engines
+    monkeypatch.setattr(free_grid, "_CACHE", {})   # calibrate tiled too
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
     monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
     monkeypatch.setattr(fdtd_tiled, "HALO", 4)
@@ -543,3 +545,78 @@ def test_calibrate_without_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calibrate_free_field(p)
     assert calibrate_free_field(p, device="cpu") > 0
+
+
+# --------------------------------------------- the free-field cache (C6)
+@pytest.fixture()
+def counted_efree(monkeypatch):
+    """An empty calibration cache, and the list of (params, device) each
+    calibration simulation ran on."""
+    from planeverb_tpu_torch.core import free_grid
+
+    runs = []
+    sim = free_grid._efree_on
+
+    def counting(params, device):
+        runs.append((params, device))
+        return sim(params, device)
+
+    monkeypatch.setattr(free_grid, "_CACHE", {})
+    monkeypatch.setattr(free_grid, "_efree_on", counting)
+    return free_grid, runs
+
+
+def test_calibration_cached_per_configuration(counted_efree):
+    """A second calibration of the same configuration and device runs no
+    simulation and returns the same float; another configuration runs one;
+    clear_cache() empties the cache."""
+    free_grid, runs = counted_efree
+    p = tpv.compute_grid_params(tpv.PlaneverbConfig(*CFG10))
+    q = tpv.compute_grid_params(tpv.PlaneverbConfig(10.0, 10.0, 375))
+    first = free_grid.calibrate_free_field(p, device="cpu")
+    assert len(runs) == 1
+    assert free_grid.calibrate_free_field(p, device="cpu") == first
+    a = tpv.Context(tpv.PlaneverbConfig(*CFG10), device="cpu")
+    assert len(runs) == 1 and a.efree == first
+    free_grid.calibrate_free_field(q, device="cpu")
+    assert len(runs) == 2 and len(free_grid._CACHE) == 2
+    free_grid.clear_cache()
+    assert free_grid._CACHE == {}
+    assert free_grid.calibrate_free_field(p, device="cpu") == first
+    assert len(runs) == 3
+
+
+def test_calibration_cache_keeps_devices_apart(counted_efree):
+    """A value cached for one device never answers another: a CUDA entry
+    is not returned to the CPU, and a CPU entry does not stop a CUDA
+    request from going to the card (which raises here, without one)."""
+    free_grid, runs = counted_efree
+    p = tpv.compute_grid_params(tpv.PlaneverbConfig(*CFG10))
+    cal = free_grid._cal_params(p)
+    for dev in ("cuda", "cuda:0", "cuda:1"):
+        free_grid._CACHE[free_grid._key(cal, torch.device(dev))] = -1.0
+    efree = free_grid.calibrate_free_field(p, device="cpu")
+    assert efree > 0 and len(runs) == 1
+    assert len({free_grid._key(cal, torch.device(d))
+                for d in ("cpu", "cuda", "cuda:0", "cuda:1")}) == 4
+    if not torch.cuda.is_available():
+        free_grid._CACHE.pop(free_grid._key(cal, torch.device("cuda")))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            free_grid.calibrate_free_field(p)
+        assert len(runs) == 1
+
+
+def test_cached_efree_across_the_clamp_matches_jax(counted_efree):
+    """Grids over CAL_SIZE_M calibrate on the clamped 25 m domain: 30 m and
+    40 m share one cache entry (one simulation), equal to the JAX
+    package's EFree at rel 1e-5 and to the 25 m grid's own."""
+    from planeverb_tpu.core import free_grid as jfree_grid
+
+    free_grid, runs = counted_efree
+    vals = [free_grid.calibrate_free_field(tpv.compute_grid_params(
+        tpv.PlaneverbConfig(size, size, 275)), device="cpu")
+        for size in (30.0, 40.0, 25.0)]
+    assert len(runs) == 1 and vals[0] == vals[1] == vals[2]
+    want = jfree_grid.calibrate_free_field(jpv.compute_grid_params(
+        jpv.PlaneverbConfig(30.0, 30.0, 275)))
+    assert abs(vals[0] - want) <= 1e-5 * abs(want)

@@ -10,6 +10,7 @@ eagerly). These tests pin each copy to its original.
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -43,7 +44,8 @@ def test_imports_without_jax():
         assert "planeverb_tpu_torch.parallel.solver_fused" in names
         for name in ("dsp", "dsp.reverb", "api", "session",
                      "sandbox.realtime", "sandbox.audio_manager",
-                     "core.objects"):
+                     "core.objects", "server", "native", "sandbox.cli",
+                     "sandbox.viewer", "sandbox.sweep", "__main__"):
             assert "planeverb_tpu_torch." + name in names, name
         print(len(names))
     """)
@@ -171,6 +173,21 @@ _COPIES = [
       "comb_feedback", "ReverbParams", "reverb_params", "ReverbState"}),
     ("dsp/convolver.py", "dsp/convolver.py", {"synthetic_ir",
                                               "resample_ir"}),
+    ("server.py", "server.py", {"_Handler", "_Server", "_HANDLERS",
+                                "EngineClient"}),
+    # all but the build directory and _compile, which renames each build
+    # into place (test workers build the libraries concurrently)
+    ("native/__init__.py", "native/__init__.py",
+     {"__all__", "_DIR", "_SRC", "_ENGINE_SRC", "_LIB", "_ENGINE_LIB",
+      "_src_tag", "build_library", "build_engine_client_library",
+      "load_library", "_OutputC", "load_engine_client_library",
+      "NativeEngineClient", "NativeReverb", "NativeDSPContext"}),
+    ("sandbox/viewer.py", "sandbox/viewer.py", {"__all__", "_box", "_db",
+                                                "_make_handler", "_PAGE"}),
+    ("sandbox/sweep.py", "sandbox/sweep.py", {"__all__", "SweepResult"}),
+    ("sandbox/cli.py", "sandbox/cli.py",
+     {"__all__", "_load_scene", "_xy", "_config", "_db", "_print_params",
+      "ascii_plot", "cmd_analyze", "cmd_grid", "cmd_scenes"}),
 ]
 
 
@@ -213,3 +230,146 @@ def test_audio_path_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "render_block" in proc.stdout
+
+
+def _methods(path, cls, skip):
+    """{method: ast dump} of class ``cls`` in a module, imports and
+    docstrings dropped, the methods named in ``skip`` left out."""
+    with open(os.path.join(_ROOT, path)) as f:
+        tree = _Strip().visit(ast.parse(f.read()))
+    [node] = [n for n in tree.body
+              if isinstance(n, ast.ClassDef) and n.name == cls]
+    return {m.name: ast.dump(m) for m in node.body
+            if isinstance(m, ast.FunctionDef) and m.name not in skip}
+
+
+@pytest.mark.parametrize("path,cls,skip", [
+    ("server.py", "EngineServer", {"__init__", "_init"}),
+    ("sandbox/viewer.py", "ViewerServer", {"__init__"})])
+def test_front_end_methods_equal_their_originals(path, cls, skip):
+    """The server's and the viewer's methods are the JAX package's, but
+    the constructors (a device) and the server's init (its Context on the
+    server's device, ``parallel.mesh_for`` that device)."""
+    want = _methods(os.path.join("planeverb_tpu", path), cls, skip)
+    got = _methods(os.path.join("planeverb_tpu_torch", path), cls, skip)
+    assert got == want
+
+
+class _NoDevice(_Strip):
+    """_Strip, and the ``device`` parameter and keyword dropped."""
+
+    def visit_arguments(self, node):
+        keep = [(a, d) for a, d in zip(node.args[-len(node.defaults):],
+                                       node.defaults) if a.arg != "device"]
+        node.args = node.args[:len(node.args) - len(node.defaults)] + \
+            [a for a, _ in keep]
+        node.defaults = [d for _, d in keep]
+        return node
+
+    def visit_keyword(self, node):
+        return None if node.arg == "device" else node
+
+
+def test_door_sweep_equals_its_original():
+    """door_sweep is the JAX package's up to its device argument."""
+    dumps = []
+    for pkg in ("planeverb_tpu", "planeverb_tpu_torch"):
+        with open(os.path.join(_ROOT, pkg, "sandbox", "sweep.py")) as f:
+            tree = _NoDevice().visit(ast.parse(f.read()))
+        [fn] = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "door_sweep"]
+        dumps.append(ast.dump(fn))
+    assert dumps[0] == dumps[1]
+
+
+_CXX_TOKENS = re.compile(
+    r'//[^\n]*|/\*.*?\*/|"(?:\\.|[^"\\])*"|\'(?:\\.|[^\'\\])*\'|\w+|\S',
+    re.S)
+
+
+def _cxx_code(path):
+    """A C++ source's tokens with the comments dropped (string and char
+    literals kept whole)."""
+    with open(os.path.join(_ROOT, path)) as f:
+        src = f.read()
+    return " ".join(t for t in _CXX_TOKENS.findall(src)
+                    if not t.startswith(("//", "/*")))
+
+
+@pytest.mark.parametrize("name", ["pv_dsp.cpp", "pv_engine_client.cpp"])
+def test_native_sources_equal_their_originals(name):
+    """The port's C++ sources are the JAX package's up to comments (and
+    whitespace), so one compiler and one set of flags build the same
+    code."""
+    src = os.path.join("native", "src", name)
+    want = _cxx_code(os.path.join("planeverb_tpu", src))
+    got = _cxx_code(os.path.join("planeverb_tpu_torch", src))
+    assert len(want) > 1000 and got == want
+
+
+def test_front_ends_run_on_the_cpu_without_torch_cuda(tmp_path):
+    """With jax and planeverb_tpu blocked and every torch.cuda entry point
+    raising, the new modules run on device="cpu": a server session through
+    the C ABI client, the CLI (analyze, batch, render --mix with and
+    without --native), the door sweep, the viewer and the native player."""
+    code = textwrap.dedent("""
+        import sys, tempfile, os
+        sys.modules["jax"] = None
+        sys.modules["planeverb_tpu"] = None
+        import numpy as np
+        import torch
+
+        def refuse(*a, **kw):
+            raise AssertionError("a CPU path touched torch.cuda")
+
+        for name in ("is_available", "device_count", "current_device",
+                     "Stream", "stream", "synchronize", "current_stream",
+                     "device", "Event", "set_device"):
+            setattr(torch.cuda, name, refuse)
+        import planeverb_tpu_torch as pv
+        from planeverb_tpu_torch.native import NativeEngineClient
+        from planeverb_tpu_torch.sandbox.cli import main
+        from planeverb_tpu_torch.sandbox.realtime import RealtimePlayer
+        from planeverb_tpu_torch.sandbox.sweep import door_sweep
+        from planeverb_tpu_torch.sandbox.viewer import ViewerServer
+        from planeverb_tpu_torch.sandbox.wav import write_wav
+        from planeverb_tpu_torch.server import EngineServer
+
+        srv = EngineServer(port=0, device="cpu")
+        srv.start_background()
+        c = NativeEngineClient(*srv.address)
+        assert c.init(8.0, 8.0, resolution=275, background=False) > 0
+        c.set_listener_position(4.0, 0.0, 4.0)
+        eid = c.emit(5.0, 0.0, 4.0)
+        assert c.step() == 1 and c.get_outputs([eid])[0] is not None
+        c.close()
+        srv.shutdown()
+        low = ["--resolution", "275", "--engine-device", "cpu"]
+        assert main(["analyze", "SmallRoom", "--source", "6,5"] + low) == 0
+        assert main(["batch", "SmallRoom", "--listener", "5,5",
+                     "--source", "6,5"] + low) == 0
+        d = tempfile.mkdtemp(dir=sys.argv[1])
+        wav = os.path.join(d, "in.wav")
+        write_wav(wav, np.ones((600, 2), np.float32) * 0.1, 44100)
+        for extra in ([], ["--native"]):
+            assert main(["render", "SmallRoom", "--source", "6,5", "--in",
+                         wav, "--out-dir", d, "--mix"] + low + extra) == 0
+        assert door_sweep(pv.PlaneverbConfig(10.0, 10.0, 275), steps=2,
+                          device="cpu").dry_gain.shape == (2,)
+        v = ViewerServer(pv.PlaneverbConfig(8.0, 8.0, 275), port=0,
+                         background=False, device="cpu")
+        v.command({"cmd": "step"})
+        assert v.state()["iteration"] == 1
+        ctx = v.ctx
+        e = ctx.emissions.emit(5.0, 0.0, 4.0)
+        p = RealtimePlayer(ctx, e, np.ones(1024, np.float32), 44100)
+        assert p.run(realtime=False).blocks == 2
+        p.close()
+        assert "jax" not in [k for k, v in sys.modules.items() if v]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=_ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
