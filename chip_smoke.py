@@ -5,7 +5,10 @@
     python3 chip_smoke.py --cards     # the sharded engine across the cards
 
 With ``--cards`` (a host of two or more cards) it runs only the sharded
-engine on meshes of distinct cards, the one path that exists only across
+engine on meshes of distinct cards (and, last, one process per card over
+NCCL: B5 at the headline and B6 at 126 m on a 2x2 mesh of four cards, 2x1
+of two, bit-equal to one card, timed beside ``measure_scaling`` on the
+same cards driven by this one process), the one path that exists only across
 cards: the ghost buffers filled across cards after each round and the
 overlap split's frame copies on side streams. The headline (B5) and the
 126 m world (B6) on a 2x2 mesh (four cards; 2x1 on two) and a 4x1 (or
@@ -175,7 +178,23 @@ line per phase:
      stepping, unpaced and paced, printed beside phase 19's
      ``native=False`` numbers; its idle output equal to a replay through
      the same library (max abs 0); ``AudioSourceManager`` with the native
-     renderer and the three ``NativeReverb``s.
+     renderer and the three ``NativeReverb``s;
+ 22. the last ported modules: ``parallel.scaling.measure_scaling`` at the
+     headline on meshes of ``cuda:0`` repeated (strong, B5 rounds, 1, 2
+     and 4 positions; the overlap split on (2, 1) and (4, 1); a weak pair;
+     the plain-torch wide solver once), every row printed with B5's
+     launches a pass, each fused row's pass rerun and held bit for bit to
+     B1 on [:nx, :ny], the wide pass and ``simulate_sharded`` (275 Hz)
+     held to B1 at REL_TOL with the onset equal; two processes on the one
+     card (this script started twice with a hidden worker flag,
+     ``init_distributed(backend="gloo")``, two positions each of a 2x2
+     ``multihost_grid_mesh``) running B5 at the headline, B6 at 60 m and
+     ``simulate_sharded_wide`` at 275 Hz, every block bit-equal to this
+     process's single-process run and the wide pass within REL_TOL of B1;
+     a ``utils.profiling.device_trace`` of one headline ``Context.step()``
+     (its five longest kernels); ``entry()`` and ``dryrun_multichip(4)``
+     on the card; and ``python -m planeverb_tpu_torch scale`` as a
+     subprocess, its rows parsed.
 
 Every phase that counts a Context's calibration launch clears the
 free-field cache (``core/free_grid.py::clear_cache``) before that Context.
@@ -192,6 +211,7 @@ beside it; it imports neither jax nor planeverb_tpu.
 """
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -305,6 +325,16 @@ FLUSH_BYTES = 256 << 20
 # B2's probe: the card's schedulers an SM (each a warp instruction a
 # cycle), for the floor of the instructions its SASS counts
 SCHEDULERS_PER_SM = 4
+# the last ported modules (phase 22): the scaling harness's positions of
+# the one card and its timing reps, the per-step solvers' resolution, the
+# worker processes' time limit, the hidden flag that starts a worker and
+# the kernels the trace lists
+SCALING_COUNTS = (1, 2, 4)
+SCALING_REPS, SCALING_CHAIN = 3, 5
+PER_STEP_RESOLUTION = 275
+WORKER_TIMEOUT_S = 300
+WORKER_FLAG = "--pv-worker"
+TRACE_TOP = 5
 
 
 def _require(cond, msg) -> None:
@@ -841,10 +871,10 @@ def _strip_start_cells(nx, ny, rank):
     return [divmod(c, ny) for c in (c0 - 1, c0, c0 - ny) if c >= 0]
 
 
-def _large_inputs(pv, voxelize, gaussian_pulse, size, dev):
+def _large_inputs(pv, voxelize, gaussian_pulse, size, dev, resolution=750):
     import torch
 
-    p = pv.compute_grid_params(pv.PlaneverbConfig(size, size, 750))
+    p = pv.compute_grid_params(pv.PlaneverbConfig(size, size, resolution))
     beta, refl = voxelize.voxelize(p, torch.from_numpy(
         voxelize.boxes_to_array(pv.demo_scene("HugeRoom").boxes)).to(dev))
     pulse = torch.from_numpy(gaussian_pulse(p)).to(dev)
@@ -947,6 +977,436 @@ def _across_cards(pv, kernels, dev, card) -> None:
                   f"{label})", flush=True)
         del single
         torch.cuda.empty_cache()
+
+# ------------------------------------------------------------ phase 22
+def _padded_args(parallel, inputs, mesh):
+    """A pass's arguments on ``mesh``: the inputs' fields padded to it."""
+    import torch
+
+    q, b, r, pu, x, y = inputs
+    nx_pad, ny_pad = parallel.pad_to_mesh(q.nx, q.ny, mesh)
+    pad = (0, ny_pad - q.ny, 0, nx_pad - q.nx)
+    return (q, torch.nn.functional.pad(b, pad),
+            torch.nn.functional.pad(r, pad), pu, x, y, mesh, nx_pad, ny_pad)
+
+
+def _worker_cases(pv, dev):
+    """The two-process passes, (name, inputs, run(mesh) -> Sharded): B5 at
+    the headline, B6 at 60 m (its 2x2 shards are above 192^2), and the
+    plain-torch wide solver at 275 Hz."""
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import voxelize
+
+    cases = []
+    for name, size, res, wide in (
+            ("B5 headline", HEADLINE["size"], 750, False),
+            (f"B6 {LARGE:g} m", LARGE, 750, False),
+            (f"wide {PER_STEP_RESOLUTION} Hz", HEADLINE["size"],
+             PER_STEP_RESOLUTION, True)):
+        inputs = _large_inputs(pv, voxelize, gaussian_pulse, size, dev, res)
+
+        def run(mesh, inputs=inputs, wide=wide):
+            args = _padded_args(parallel, inputs, mesh)
+            if wide:
+                return parallel.simulate_sharded_wide(*args, halo=8)
+            return parallel.simulate_sharded_fused(*args, halo=SHARD_HALO)
+
+        cases.append((name, inputs, run))
+    return cases
+
+
+def _card_cases(pv, dev):
+    """``--cards``' one-process-a-card passes: B5 at the headline and B6 at
+    126 m (its 2x2 shards are 482^2)."""
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import voxelize
+
+    cases = []
+    for name, size in (("B5 headline", HEADLINE["size"]),
+                       (f"B6 {XL:g} m", XL)):
+        inputs = _large_inputs(pv, voxelize, gaussian_pulse, size, dev)
+
+        def run(mesh, inputs=inputs):
+            return parallel.simulate_sharded_fused(
+                *_padded_args(parallel, inputs, mesh), halo=SHARD_HALO)
+
+        cases.append((name, inputs, run))
+    return cases
+
+
+def _worker_launches(name, q):
+    """The round launches one worker makes in a case's pass: one a round
+    on its one device, B5's or B6's by the case's name; none for the
+    plain-torch wide solver."""
+    rounds = -(-q.response_length // SHARD_HALO)
+    return {"sharded_round": rounds if name.startswith("B5") else 0,
+            "banded_round": rounds if name.startswith("B6") else 0}
+
+
+def _cards_mesh(parallel, n, devices, ranks):
+    """A mesh of n positions (2x2 for four, n x 1 otherwise) over
+    ``devices`` owned by ``ranks``, row-major."""
+    shape = (2, 2) if n == 4 else (n, 1)
+    rows = [list(range(i * shape[1], (i + 1) * shape[1]))
+            for i in range(shape[0])]
+    return parallel.Mesh([[devices[k] for k in r] for r in rows],
+                         None if ranks is None else
+                         [[ranks[k] for k in r] for r in rows])
+
+
+def _block_digests(sharded) -> dict:
+    """SHA-256 of each local block's fields (its recording and grids), by
+    mesh position "i,j"."""
+    names = sharded.kind._fields
+    out = {}
+    for i, row in enumerate(sharded.blocks[names[0]]):
+        for j, block in enumerate(row):
+            if block is None:
+                continue
+            h = hashlib.sha256()
+            for n in names:
+                h.update(sharded.blocks[n][i][j].contiguous().cpu().numpy()
+                         .tobytes())
+            out[f"{i},{j}"] = h.hexdigest()
+    return out
+
+
+def _vs_b1(fields, single, q):
+    """(max rel over the recording and flux, onset equal) of assembled
+    fields on [:nx, :ny] against a single-device FdtdResult."""
+    import torch
+
+    rel = max(_rel(getattr(fields, n)[..., :q.nx, :q.ny],
+                   getattr(single, n))[0]
+              for n in ("pressure", "flux_x", "flux_y"))
+    return rel, bool(torch.equal(fields.onset[:q.nx, :q.ny], single.onset))
+
+
+def _worker_main(argv) -> int:
+    """A worker process: ``argv`` = (port, rank, processes, backend).
+    Joins a process group on 127.0.0.1 and runs its cases on a
+    multi-process mesh, then prints one ``WORKER {json}`` line: each
+    case's block digests, launches, pass time, and for the wide pass its
+    error against B1. With gloo (phase 22) two processes each take two
+    positions of ``cuda:0`` on a 2x2 ``multihost_grid_mesh``; with nccl
+    (``--cards``) each process owns one card of a 2x2 (four) or n x 1
+    mesh."""
+    import torch
+
+    import planeverb_tpu_torch as pv
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.ops import fdtd_fused
+    from planeverb_tpu_torch.parallel import solver_fused
+
+    port, rank, world, backend = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    parallel.init_distributed(f"127.0.0.1:{port}", num_processes=world,
+                              process_id=rank, backend=backend)
+    if backend == "gloo":
+        dev = torch.device("cuda", 0)
+        mesh = parallel.multihost_grid_mesh(local_devices=[dev, dev])
+        _require(mesh.ranks == [[0, 0], [1, 1]] and mesh.multi_process,
+                 f"worker {rank}: mesh {mesh}")
+        cases = _worker_cases(pv, dev)
+    else:
+        dev = torch.device("cuda", rank)
+        mesh = _cards_mesh(parallel, world,
+                           [f"cuda:{r}" for r in range(world)],
+                           list(range(world)))
+        cases = _card_cases(pv, dev)
+    out = {"rank": rank, "cases": {}}
+    for name, inputs, run in cases:
+        fdtd_fused.reset_launch_counts()
+        res = run(mesh)
+        torch.cuda.synchronize(dev)
+        case = {"blocks": _block_digests(res),
+                "launches": {f.__name__: f.launches for f in (
+                    solver_fused.sharded_round, solver_fused.banded_round)}}
+        if name.startswith("wide"):
+            q, b, r, pu, x, y = inputs
+            single, _ = fdtd_fused.fdtd_sim(q, b, r, pu, x, y)
+            case["rel"], case["onset_equal"] = _vs_b1(res.assemble(dev),
+                                                      single, q)
+        del res
+        walls = []
+        for _ in range(3):
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            run(mesh)
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        case["ms"] = statistics.median(walls)
+        out["cases"][name] = case
+        torch.cuda.empty_cache()
+    print("WORKER " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_workers(root, argv_of, n, timeout):
+    """Start ``n`` copies of this script as workers (``argv_of(rank)``),
+    wait for all, and return their ``WORKER`` results; a worker that fails
+    or passes ``timeout`` fails the run, and none outlives this call."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), WORKER_FLAG,
+         *argv_of(port, rank)], cwd=root, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    results = []
+    for rank, (proc, text) in enumerate(zip(procs, outs)):
+        _require(proc.returncode == 0,
+                 f"worker {rank} exited {proc.returncode}:\n{text[-4000:]}")
+        lines = [line for line in text.splitlines()
+                 if line.startswith("WORKER ")]
+        _require(len(lines) == 1, f"worker {rank} printed no result:\n"
+                                  f"{text[-4000:]}")
+        results.append(json.loads(lines[0][len("WORKER "):]))
+    return results
+
+
+def _scaling_phase(pv, card, label, root):
+    """Phase 22: the scaling harness, the per-step solvers, two processes
+    on the card, a device trace, the entry module and the CLI's scale."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.entry import dryrun_multichip, entry
+    from planeverb_tpu_torch.ops import fdtd_fused, voxelize
+    from planeverb_tpu_torch.parallel import solver_fused
+    from planeverb_tpu_torch.parallel.scaling import measure_scaling
+    from planeverb_tpu_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    one_card = ["cuda:0"] * max(SCALING_COUNTS)
+    hl = _large_inputs(pv, voxelize, gaussian_pulse, HEADLINE["size"], dev)
+    q = hl[0]
+    passes = 1 + SCALING_REPS * SCALING_CHAIN
+
+    # -- the harness: strong, the overlap sweep, a weak pair (B5 rounds)
+    sweeps = (("strong", dict(device_counts=list(SCALING_COUNTS))),
+              ("overlap", dict(device_counts=list(SCALING_COUNTS[1:]),
+                               overlap=True)),
+              ("weak", dict(device_counts=[1, 2], mode="weak")))
+    fused_rows = []
+    for what, kw in sweeps:
+        fdtd_fused.reset_launch_counts()
+        rows = measure_scaling(*hl, halo=SHARD_HALO, reps=SCALING_REPS,
+                               chain=SCALING_CHAIN, solver="fused",
+                               devices=one_card, **kw)
+        torch.cuda.synchronize()
+        per_pass = [-(-q.response_length // r["halo"])
+                    * (2 if r["overlap"] and r["mesh"][0] > 1 else 1)
+                    for r in rows]
+        b5 = solver_fused.sharded_round.launches
+        _require(b5 == passes * sum(per_pass)
+                 and solver_fused.banded_round.launches == 0,
+                 f"{what} sweep: B5 launches {b5}, B6 "
+                 f"{solver_fused.banded_round.launches}")
+        for r, n in zip(rows, per_pass):
+            r["b5_launches_per_pass"] = n
+            print(f"phase 22 measure_scaling {what} (fused, {r['devices']} "
+                  f"position(s) of cuda:0): {json.dumps(r)} ({label})",
+                  flush=True)
+        fused_rows += rows
+
+    # -- each fused row's pass, rerun, bit-equal to B1 on one device
+    singles = {}
+    for r in fused_rows:
+        world = (hl if r["mode"] == "strong" else
+                 _weak_inputs(pv, voxelize, gaussian_pulse, q, r, dev))
+        key = (r["mode"], *r["grid"])
+        if key not in singles:
+            singles[key] = fdtd_fused.fdtd_sim(*world)[0]
+        mesh = parallel.grid_mesh(one_card[:r["devices"]], tuple(r["mesh"]))
+        got = parallel.simulate_sharded_fused(
+            *_padded_args(parallel, world, mesh), halo=r["halo"],
+            overlap=r["overlap"]).assemble(dev)
+        single = singles[key]
+        _require(all(torch.equal(getattr(got, n)[..., :single.onset.shape[0],
+                                                 :single.onset.shape[1]],
+                                 getattr(single, n))
+                     for n in single._fields),
+                 f"fused row {r} differs from B1")
+        del got
+    del singles
+    torch.cuda.empty_cache()
+    print(f"phase 22 every fused row's pass ({len(fused_rows)}) bit-equal to "
+          f"B1 on one card on [:nx, :ny]", flush=True)
+
+    # -- the plain-torch wide solver once, and the per-step solver at 275 Hz
+    fdtd_fused.reset_launch_counts()
+    (wrow,) = measure_scaling(*hl, device_counts=[max(SCALING_COUNTS)],
+                              halo=SHARD_HALO, reps=1, chain=1,
+                              solver="wide", devices=one_card)
+    _require(solver_fused.sharded_round.launches == 0,
+             "the wide solver launched a round kernel")
+    b1, _ = fdtd_fused.fdtd_sim(*hl)
+    wmesh = parallel.grid_mesh(one_card, tuple(wrow["mesh"]))
+    wide = parallel.simulate_sharded_wide(
+        *_padded_args(parallel, hl, wmesh), halo=wrow["halo"]).assemble(dev)
+    wide_rel, wide_onset = _vs_b1(wide, b1, q)
+    _require(wide_rel <= REL_TOL and wide_onset,
+             f"wide vs B1: rel {wide_rel}, onset equal {wide_onset}")
+    del wide, b1
+    low = _large_inputs(pv, voxelize, gaussian_pulse, HEADLINE["size"], dev,
+                        PER_STEP_RESOLUTION)
+    b1_low, _ = fdtd_fused.fdtd_sim(*low)
+    t0 = time.perf_counter()
+    step = parallel.simulate_sharded(*_padded_args(parallel, low, wmesh))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_rel, step_onset = _vs_b1(step.assemble(dev), b1_low, low[0])
+    _require(step_rel <= REL_TOL and step_onset,
+             f"simulate_sharded vs B1: rel {step_rel}, onset equal "
+             f"{step_onset}")
+    del step
+    print(f"phase 22 measure_scaling wide (plain torch, reps 1, chain 1): "
+          f"{json.dumps(wrow)}; its pass vs B1 max rel {wide_rel:.3e} "
+          f"(bound {REL_TOL:g}), onset equal; simulate_sharded "
+          f"{low[0].nx}x{low[0].ny}x{low[0].response_length} "
+          f"({PER_STEP_RESOLUTION} Hz) on {wmesh.shape['x']}x"
+          f"{wmesh.shape['y']}: {step_ms:.1f} ms (host wall, first pass), "
+          f"vs B1 max rel {step_rel:.3e}, onset equal ({label})", flush=True)
+
+    # -- two processes on the one card
+    t_workers = time.perf_counter()
+    results = _run_workers(root, lambda port, rank: [str(port), str(rank),
+                                                     "2", "gloo"],
+                           2, WORKER_TIMEOUT_S)
+    workers_s = time.perf_counter() - t_workers
+    mesh22 = parallel.grid_mesh(one_card, (2, 2))
+    for name, inputs, run in _worker_cases(pv, dev):
+        mine = _block_digests(run(mesh22))
+        torch.cuda.synchronize()
+        for res in results:
+            case = res["cases"][name]
+            _require(case["blocks"] and all(
+                mine[pos] == d for pos, d in case["blocks"].items()),
+                f"{name}: worker {res['rank']}'s blocks differ from the "
+                f"single-process run")
+            _require(case["launches"] == _worker_launches(name, inputs[0]),
+                     f"{name}: worker {res['rank']} launches "
+                     f"{case['launches']}")
+            if name.startswith("wide"):
+                _require(case["rel"] <= REL_TOL and case["onset_equal"],
+                         f"{name}: worker {res['rank']} vs B1 rel "
+                         f"{case['rel']}")
+        torch.cuda.empty_cache()
+        print(f"phase 22 two processes (gloo, 2 positions of cuda:0 each, "
+              f"2x2 multihost_grid_mesh) {name}: every block bit-equal to "
+              f"the single-process run; launches "
+              + "; ".join(f"rank {r['rank']} "
+                          f"{r['cases'][name]['launches']}" for r in results)
+              + "; pass " + ", ".join(f"{r['cases'][name]['ms']:.1f}"
+                                     for r in results)
+              + " ms (host wall, median of 3)"
+              + ("" if "rel" not in results[0]["cases"][name] else
+                 f"; vs B1 max rel "
+                 f"{max(r['cases'][name]['rel'] for r in results):.3e}")
+              + f" ({label})", flush=True)
+    print(f"phase 22 the two workers took {workers_s:.1f} s", flush=True)
+
+    # -- a device trace of one headline Context.step()
+    lx, lz = HEADLINE["listener"]
+    ctx = pv.Context(pv.PlaneverbConfig(HEADLINE["size"], HEADLINE["size"],
+                                        HEADLINE["resolution"]),
+                     scene=pv.demo_scene(HEADLINE["scene"]), device=dev)
+    ctx.set_listener_position(lx, 0.0, lz)
+    for x, z in EMITTERS:
+        ctx.emissions.emit(x, 0.0, z)
+    ctx.step()
+    trace_dir = os.path.join(root, "planeverb_tpu_torch", "build", "trace22")
+    with device_trace(trace_dir) as prof:
+        ctx.step()
+        torch.cuda.synchronize()
+    _require(os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0,
+             "device_trace wrote no trace")
+    kern = sorted(((getattr(e, "self_device_time_total", 0.0)
+                    or getattr(e, "device_time_total", 0.0), e.count, e.key)
+                   for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))),
+                  reverse=True)[:TRACE_TOP]
+    del ctx
+    print(f"phase 22 device_trace of one headline Context.step() -> "
+          f"{os.path.relpath(trace_dir, root)}/trace.json; longest kernels: "
+          + ("; ".join(f"{key[:60]} x{n} {us / 1e3:.3f} ms"
+                       for us, n, key in kern)
+             or "none recorded (the trace holds no device time)")
+          + f" ({label})", flush=True)
+
+    # -- the entry module on the card
+    fn, args = entry(device=dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    cfn, cargs = entry(device="cpu")
+    want = cfn(*cargs)
+    for name, (rtol, atol) in _GOLDEN.items():
+        np.testing.assert_allclose(getattr(out, name).cpu().numpy(),
+                                   getattr(want, name).numpy(), rtol=rtol,
+                                   atol=atol, err_msg=f"entry {name}")
+    dryrun_multichip(max(SCALING_COUNTS), device=dev.type)
+    print(f"phase 22 entry() on the card within the golden tolerances of "
+          f"entry(device='cpu'); dryrun_multichip({max(SCALING_COUNTS)}) "
+          f"passed its checks (the line above)", flush=True)
+
+    # -- the CLI's scale as a subprocess
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "planeverb_tpu_torch", "scale",
+         HEADLINE["scene"], "--grid-size", f"{HEADLINE['size']:g}",
+         "--resolution", str(HEADLINE["resolution"]), "--listener",
+         f"{lx:g},{lz:g}", "--solver", "fused", "--engine-device",
+         dev.type], cwd=root,
+        capture_output=True, text=True, timeout=WORKER_TIMEOUT_S)
+    _require(proc.returncode == 0, f"scale exited {proc.returncode}: "
+                                   f"{proc.stderr[-2000:]}")
+    cli_rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    _require(cli_rows and all(r["solver"] == "fused" and r["wall_s"] > 0
+                              for r in cli_rows), proc.stdout)
+    print(f"phase 22 python -m planeverb_tpu_torch scale "
+          f"{HEADLINE['scene']} --solver fused: {len(cli_rows)} row(s), "
+          + "; ".join(json.dumps(r) for r in cli_rows)
+          + f" ({time.perf_counter() - t0:.1f} s with the interpreter's "
+          f"start; {label})", flush=True)
+    print(f"phase 22 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"rows": fused_rows, "wide": wrow}
+
+
+def _weak_inputs(pv, voxelize, gaussian_pulse, q, row, dev):
+    """The weak sweep's world for a row (measure_scaling's: an empty world
+    mesh times the base grid, at the base response length, listener at its
+    center), on ``dev``."""
+    import torch
+
+    mx, my = row["mesh"]
+    p = dataclasses.replace(pv.compute_grid_params(pv.PlaneverbConfig(
+        q.grid_size_x * mx, q.grid_size_y * my, q.resolution)),
+        response_length=q.response_length)
+    beta, refl = (torch.from_numpy(a).to(dev)
+                  for a in voxelize.base_fields(p))
+    pulse = torch.from_numpy(gaussian_pulse(q)).to(dev)
+    return p, beta, refl, pulse, p.nx // 2, p.ny // 2
+
 
 
 def _same(a, b) -> bool:
@@ -2065,6 +2525,63 @@ def _native_audio_phase(pv, kernels, card, label, python_dsp):
     del ctx
 
 
+def _processes_across_cards(pv, card, root) -> None:
+    """``--cards``, last: one process per card over NCCL (``--pv-worker``),
+    B5 at the headline and B6 at 126 m on a 2x2 mesh of four cards (n x 1
+    of n), every block bit-equal to this process's single-controller run on
+    ``cuda:0`` repeated; their pass times beside ``measure_scaling`` over
+    the distinct cards driven by this one process."""
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import voxelize
+    from planeverb_tpu_torch.parallel.scaling import measure_scaling
+
+    n = min(torch.cuda.device_count(), 4)
+    n = 4 if n == 4 else 2
+    label = f"{n} x {card}"
+    t0 = time.perf_counter()
+    results = _run_workers(root, lambda port, rank: [str(port), str(rank),
+                                                     str(n), "nccl"],
+                           n, WORKER_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    mesh = _cards_mesh(parallel, n, ["cuda:0"] * n, None)
+    for name, inputs, run in _card_cases(pv, dev):
+        mine = _block_digests(run(mesh))
+        torch.cuda.synchronize()
+        for res in results:
+            blocks = res["cases"][name]["blocks"]
+            _require(len(blocks) == 1 and all(mine[pos] == d for pos, d
+                                              in blocks.items()),
+                     f"{name}: process {res['rank']}'s block differs from "
+                     f"the single-controller run")
+            _require(res["cases"][name]["launches"]
+                     == _worker_launches(name, inputs[0]),
+                     f"{name}: process {res['rank']} launches "
+                     f"{res['cases'][name]['launches']}")
+        torch.cuda.empty_cache()
+        print(f"cards processes (nccl, one a card, {mesh.shape['x']}x"
+              f"{mesh.shape['y']}) {name}: every block bit-equal to the "
+              f"single-controller run; launches "
+              + "; ".join(f"rank {r['rank']} {r['cases'][name]['launches']}"
+                          for r in results)
+              + "; pass " + ", ".join(f"{r['cases'][name]['ms']:.3f}"
+                                     for r in results)
+              + f" ms (host wall, median of 3; {label})", flush=True)
+    hl = _large_inputs(pv, voxelize, gaussian_pulse, HEADLINE["size"], dev)
+    rows = measure_scaling(*hl, device_counts=[c for c in SCALING_COUNTS
+                                               if c <= n],
+                           halo=SHARD_HALO, solver="fused",
+                           devices=[f"cuda:{i}" for i in range(n)])
+    for r in rows:
+        print(f"cards measure_scaling (one process, distinct cards): "
+              f"{json.dumps(r)} ({label})", flush=True)
+    print(f"cards processes: the {n} workers took {workers_s:.1f} s",
+          flush=True)
+
+
 def _server_across_cards(pv, card) -> None:
     """``--cards``: one server init with a mesh of every card at the
     headline (B5 behind the wire), its outputs bit-equal to one card's."""
@@ -2128,6 +2645,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if WORKER_FLAG in sys.argv[1:]:
+        return _worker_main(sys.argv[sys.argv.index(WORKER_FLAG) + 1:])
 
     import planeverb_tpu_torch as pv
     from planeverb_tpu_torch import kernels
@@ -2151,6 +2670,7 @@ def main() -> int:
         kernels.build(force=True)
         _across_cards(pv, kernels, torch.device("cuda", 0), card)
         _server_across_cards(pv, card)
+        _processes_across_cards(pv, card, root)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3596,6 +4116,8 @@ def main() -> int:
     # -- 20, 21. the integration front ends and the native audio path
     _integration_phase(pv, kernels, card, label)
     _native_audio_phase(pv, kernels, card, label, audio19["reports"])
+    # -- 22. the last ported modules
+    _scaling_phase(pv, card, label, root)
 
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]

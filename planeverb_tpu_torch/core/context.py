@@ -204,6 +204,11 @@ class Context:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.Mesh (grid_mesh), "
                                 f"got {type(mesh).__name__}")
+            if mesh.multi_process:
+                raise ValueError(
+                    "Context(mesh=...): the mesh has positions of other "
+                    "processes; a Context drives a single-process mesh (a "
+                    "Context across processes is not ported)")
             self.device = mesh.first_device
             if device is not None and torch.device(device).type \
                     != mesh.device_type:

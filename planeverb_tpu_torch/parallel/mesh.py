@@ -6,6 +6,11 @@ single-controller form of ``jax.sharding.Mesh`` under ``shard_map``). The
 same device may stand at several mesh positions: a mesh of ``"cpu"``
 repeated runs the plain versions, a mesh of ``"cuda:0"`` repeated runs the
 sharded engine's kernels on one card, with real ghosts and a real exchange.
+
+Each position also has an owning process (``ranks``, by default the calling
+process for every position): a mesh made by
+``multihost.multihost_grid_mesh`` spans several processes, each of which
+allocates, simulates and launches only its own positions.
 """
 
 from __future__ import annotations
@@ -13,9 +18,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["Mesh", "factor_mesh", "grid_mesh", "mesh_for",
            "mesh_from_count", "pad_to_mesh"]
+
+
+def process_rank() -> int:
+    """The calling process's rank in the default process group (0 where
+    none is initialised)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
 
 
 def _device(d) -> torch.device:
@@ -34,11 +47,15 @@ class Mesh:
     ``shape["x"]``/``shape["y"]`` are the axis sizes. Every device is of one
     type, ``cuda`` or ``cpu``: the sharded engine launches its kernels on a
     CUDA mesh and runs their plain versions on a CPU mesh, never a mix.
+
+    ``ranks[i][j]`` is the process that owns position (i, j) (default: the
+    calling process, for every position); :meth:`is_local` says whether it
+    is the calling one. A position's device is a device of its owner.
     """
 
     axis_names = ("x", "y")
 
-    def __init__(self, devices):
+    def __init__(self, devices, ranks=None):
         rows = [[_device(d) for d in row] for row in devices]
         if not rows or not rows[0] or any(len(r) != len(rows[0])
                                            for r in rows):
@@ -50,6 +67,22 @@ class Mesh:
                              f"got {sorted(types)}")
         self.devices = rows
         self.shape = {"x": len(rows), "y": len(rows[0])}
+        self.rank = process_rank()
+        if ranks is None:
+            ranks = [[self.rank] * len(rows[0]) for _ in rows]
+        self.ranks = [[int(r) for r in row] for row in ranks]
+        if [len(r) for r in self.ranks] != [len(r) for r in rows]:
+            raise ValueError(f"ranks {self.ranks} do not match the "
+                             f"{len(rows)}x{len(rows[0])} devices")
+
+    def is_local(self, i: int, j: int) -> bool:
+        """Whether the calling process owns position (i, j)."""
+        return self.ranks[i][j] == self.rank
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether another process owns a position of this mesh."""
+        return any(r != self.rank for row in self.ranks for r in row)
 
     @property
     def device_type(self) -> str:
@@ -59,9 +92,19 @@ class Mesh:
     def first_device(self) -> torch.device:
         return self.devices[0][0]
 
+    @property
+    def local_device(self) -> torch.device:
+        """The device of the calling process's first position."""
+        for i, row in enumerate(self.devices):
+            for j, d in enumerate(row):
+                if self.is_local(i, j):
+                    return d
+        raise ValueError(f"process {self.rank} owns no position of {self}")
+
     def __repr__(self) -> str:
+        ranks = (f", ranks={self.ranks}" if self.multi_process else "")
         return (f"Mesh({self.shape['x']}x{self.shape['y']}, "
-                f"{[[str(d) for d in r] for r in self.devices]})")
+                f"{[[str(d) for d in r] for r in self.devices]}{ranks})")
 
 
 def factor_mesh(n: int) -> tuple[int, int]:

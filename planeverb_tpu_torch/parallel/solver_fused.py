@@ -19,7 +19,11 @@ its shard (:class:`RoundLaunch`): a neighbour on the same device is read in
 place, a neighbour on another device through a ghost buffer on this one,
 into which the round loop copies the slab the region reads after each round
 (``.to``-style copies in the plain rounds, ``solver.py::_FrameCopies`` in
-the split). Two wrappers, one kernel, each with the plain version of one
+the split). On a mesh of several processes each process makes only its own
+shards and launches; a neighbour of another process is read through a
+ghost buffer too, filled by point-to-point transfers after each round
+(``multihost.post``, every send and receive of the round in one
+``batch_isend_irecv``, waited on before the next launch that reads them). Two wrappers, one kernel, each with the plain version of one
 device's round (:func:`device_round_reference`: the exchange read through
 the same table, then the per-shard plain rounds):
 
@@ -83,13 +87,14 @@ from planeverb_tpu_torch.ops._common import (barrier_words, check_field,
                                              counted, fresh_acc, on_card,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
-from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
-                                          fdtd_step_folded,
+from planeverb_tpu_torch.ops.fdtd import (FdtdResult, fdtd_step_folded,
                                           stencil_coefficients)
+from planeverb_tpu_torch.parallel import multihost
 from planeverb_tpu_torch.parallel.mesh import Mesh
-from planeverb_tpu_torch.parallel.solver import (_exchange_axes,
-                                                 _exchange_frames, assemble,
-                                                 shard_fields)
+from planeverb_tpu_torch.parallel.solver import (Sharded, _exchange_frames,
+                                                 extend_statics,
+                                                 fold_coefficients,
+                                                 static_blocks)
 
 __all__ = ["Sharded", "RoundLaunch", "fold_planes",
            "sharded_round", "sharded_round_reference", "banded_round",
@@ -103,35 +108,6 @@ __all__ = ["Sharded", "RoundLaunch", "fold_planes",
 REFERENCE_TILE = (32, 32)
 # Global coordinates no window reaches: a listener outside the field
 _NOWHERE = -(1 << 30)
-
-
-class Sharded:
-    """Per-shard fields of a sharded pass.
-
-    ``blocks[name]`` is a block grid: ``mesh.shape["x"]`` rows of
-    ``mesh.shape["y"]`` tensors [..., bx, by], each on its shard's device
-    (the recording [T, bx, by], the grids [bx, by]). ``kind`` is the
-    NamedTuple the fields make up (``FdtdResult`` or ``analyzer.Moments``);
-    :meth:`assemble` builds it, padded to [nx_pad, ny_pad], on one device.
-    """
-
-    def __init__(self, kind, blocks: dict):
-        self.kind = kind
-        self.blocks = blocks
-
-    def field(self, name: str, device) -> torch.Tensor:
-        """One field, assembled on ``device``."""
-        return assemble(self.blocks[name], device)
-
-    def assemble(self, device):
-        return self.kind(**{n: self.field(n, device)
-                            for n in self.kind._fields})
-
-    def at(self, name: str, i: int, j: int) -> torch.Tensor:
-        """The values of global cell (i, j), read from its owning shard."""
-        grid = self.blocks[name]
-        bx, by = grid[0][0].shape[-2:]
-        return grid[i // bx][j // by][..., i % bx, j % by]
 
 
 def _tile(tile) -> tuple[int, int]:
@@ -151,18 +127,8 @@ def fold_planes(params: GridParams, beta_e, y_e, gi0: int, gj0: int,
     (0, 0). Folded once per simulation; the wrong values the block edge's
     zero shifts give its first row and column lie outside the cone of the
     interior."""
-    ex, ey = beta_e.shape
-    dev = beta_e.device
-    b_xm = F.pad(beta_e[:-1], (0, 0, 1, 0))
-    y_xm = F.pad(y_e[:-1], (0, 0, 1, 0))
-    b_ym = F.pad(beta_e[:, :-1], (1, 0))
-    y_ym = F.pad(y_e[:, :-1], (1, 0))
-    gi = (gi0 + torch.arange(ex, device=dev)).view(ex, 1)
-    gj = (gj0 + torch.arange(ey, device=dev)).view(1, ey)
-    coefs = stencil_coefficients(
-        beta_e, y_e, b_xm, y_xm, b_ym, y_ym, gi, gj, params.grid_x,
-        params.grid_y, params.boundary_type == BoundaryType.ABSORBING)
-    src = ((gi == lix) & (gj == liy)).to(torch.float32).expand(ex, ey)
+    coefs, gi, gj = fold_coefficients(params, beta_e, y_e, gi0, gj0)
+    src = ((gi == lix) & (gj == liy)).to(torch.float32).expand(beta_e.shape)
     return torch.stack([beta_e, *coefs, src])
 
 
@@ -406,15 +372,30 @@ class _Shard:
         return (t[parity] if by_parity else t), i0, j0
 
 
-def _link(shards, kx: int, ky: int, slabs: bool) -> None:
-    """Give every shard its neighbours on the sides its ghosts reach: a
-    neighbour on the same device is read in place; one on another device
-    (or every one, with ``slabs``) through a ghost buffer on the shard's
-    device holding the slab its ghosts read."""
-    mx, my = len(shards), len(shards[0])
+class _Remote:
+    """The ghost slabs a pass exchanges with other processes after a round:
+    ``sends`` (a local shard's state buffers, the rows and columns a
+    neighbour of another process reads, its rank, the tag) and ``recvs``
+    (a local ghost buffer, the sender's rank, the tag), in one order on
+    every process: by (sender position, receiver position, side)."""
+
+    def __init__(self):
+        self.sends, self.recvs = [], []
+
+    def post(self, parity: int) -> multihost.Pending:
+        """Start filling the ghost buffers from the senders' state of
+        ``parity``; wait on the result before a launch reads them."""
+        return multihost.post(
+            [(state[parity][:, rows, cols], peer, tag)
+             for state, rows, cols, peer, tag in self.sends], self.recvs)
+
+
+def _pairs(mx: int, my: int, kx: int, ky: int):
+    """Every (sender, receiver, side) of a pass's ghosts: the receiver's
+    neighbour on side (dx, dy) sends the slab its ghosts there read."""
+    out = []
     for i in range(mx):
         for j in range(my):
-            s = shards[i][j]
             for dx in (-1, 0, 1):
                 for dy in (-1, 0, 1):
                     ni, nj = i + dx, j + dy
@@ -422,18 +403,57 @@ def _link(shards, kx: int, ky: int, slabs: bool) -> None:
                             or (dy and not ky) or not 0 <= ni < mx
                             or not 0 <= nj < my):
                         continue
-                    n = shards[ni][nj]
-                    if n.device == s.device and not slabs:
-                        s.near[(dx, dy)] = (n.state, dx * s.bx, dy * s.by,
-                                            True)
-                        continue
-                    rows, cols = _side(dx, s.bx, kx), _side(dy, s.by, ky)
-                    buf = torch.zeros(
-                        (3, rows.stop - rows.start, cols.stop - cols.start),
-                        dtype=torch.float32, device=s.device)
-                    s.near[(dx, dy)] = (buf, (-kx, 0, s.bx)[dx + 1],
-                                        (-ky, 0, s.by)[dy + 1], False)
-                    s.ghosts.append((buf, n.state, rows, cols))
+                    out.append(((ni, nj), (i, j), (dx, dy)))
+    return out
+
+
+def _ghost_buffer(s: _Shard, dx: int, dy: int, kx: int, ky: int):
+    """A ghost buffer on shard ``s``'s device for its side (dx, dy), linked
+    as that side's source; returns it with the neighbour's rows and
+    columns it holds."""
+    rows, cols = _side(dx, s.bx, kx), _side(dy, s.by, ky)
+    buf = torch.zeros((3, rows.stop - rows.start, cols.stop - cols.start),
+                      dtype=torch.float32, device=s.device)
+    s.near[(dx, dy)] = (buf, (-kx, 0, s.bx)[dx + 1], (-ky, 0, s.by)[dy + 1],
+                        False)
+    return buf, rows, cols
+
+
+def _link(shards, kx: int, ky: int, slabs: bool) -> None:
+    """Give every local shard its neighbours of the same process on the
+    sides its ghosts reach: a neighbour on the same device is read in
+    place; one on another device (or every one, with ``slabs``) through a
+    ghost buffer on the shard's device holding the slab its ghosts read.
+    Neighbours of other processes are :func:`_link_remote`'s."""
+    for (ni, nj), (i, j), (dx, dy) in _pairs(len(shards), len(shards[0]),
+                                             kx, ky):
+        s, n = shards[i][j], shards[ni][nj]
+        if s is None or n is None:
+            continue
+        if n.device == s.device and not slabs:
+            s.near[(dx, dy)] = (n.state, dx * s.bx, dy * s.by, True)
+            continue
+        buf, rows, cols = _ghost_buffer(s, dx, dy, kx, ky)
+        s.ghosts.append((buf, n.state, rows, cols))
+
+
+def _link_remote(shards, kx: int, ky: int, mesh: Mesh) -> _Remote:
+    """Link every local shard's neighbours of other processes through
+    ghost buffers, and list the slabs that cross processes after a round:
+    the receives into those buffers and the sends of local shards' slabs
+    to neighbours of other processes, tagged in one order on every
+    process, by (sender position, receiver position, side)."""
+    remote = _Remote()
+    for tag, ((ni, nj), (i, j), (dx, dy)) in enumerate(sorted(_pairs(
+            len(shards), len(shards[0]), kx, ky))):
+        s, n = shards[i][j], shards[ni][nj]
+        if s is not None and n is None:
+            buf, _, _ = _ghost_buffer(s, dx, dy, kx, ky)
+            remote.recvs.append((buf, mesh.ranks[ni][nj], tag))
+        elif s is None and n is not None:
+            remote.sends.append((n.state, _side(dx, n.bx, kx),
+                                 _side(dy, n.by, ky), mesh.ranks[i][j], tag))
+    return remote
 
 
 class RoundLaunch:
@@ -637,26 +657,6 @@ def banded_round(params: GridParams, t0: int, halo: int, launch: RoundLaunch,
 
 
 # ------------------------------------------------------------ the engine
-def _blocks(mesh: Mesh, name: str, x, nx_pad: int, ny_pad: int):
-    """A [nx_pad, ny_pad] field as the mesh's block grid: a tensor is
-    sharded, a block grid (from ``shard_fields``) is checked."""
-    where = "sharded"
-    if isinstance(x, torch.Tensor):
-        check_field(where, name, x, (nx_pad, ny_pad))
-        return shard_fields(mesh, x)[0]
-    mx, my = mesh.shape["x"], mesh.shape["y"]
-    if len(x) != mx or any(len(row) != my for row in x):
-        raise ValueError(f"{where}: {name} is not a {mx}x{my} block grid")
-    for i, row in enumerate(x):
-        for j, b in enumerate(row):
-            check_field(where, name, b, (nx_pad // mx, ny_pad // my))
-            if b.device != mesh.devices[i][j]:
-                raise ValueError(f"{where}: {name} block ({i}, {j}) is on "
-                                 f"{b.device}, its shard on "
-                                 f"{mesh.devices[i][j]}")
-    return x
-
-
 def _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
                         nx_pad, ny_pad, reference, with_moments):
     """The exchange-free 1x1 route beyond B5's size: the tiled B3 (+ B4) on
@@ -694,14 +694,16 @@ def _round_fn(banded: bool, reference: bool):
     return banded_round if banded else sharded_round
 
 
-def _shards(mesh: Mesh, beta_b, y_b, bx: int, by: int, kx: int, ky: int,
+def _shards(mesh: Mesh, beta, y, bx: int, by: int, kx: int, ky: int,
             T: int):
-    """The mesh's shards, their beta and Y extended by kx / ky ghosts (once
-    a simulation)."""
-    beta_e = _exchange_axes(beta_b, kx, ky)
-    y_e = _exchange_axes(y_b, kx, ky)
+    """The calling process's shards (None at other processes' positions),
+    their beta and Y extended by kx / ky ghosts (once a simulation):
+    ``beta``/``y`` are block grids, or on a multi-process mesh the whole
+    padded fields (``solver.py::extend_statics``)."""
+    beta_e, y_e = extend_statics(mesh, beta, y, kx, ky)
     return [[_Shard(i, j, bx, by, T, d, torch.stack([beta_e[i][j],
                                                      y_e[i][j]]))
+             if mesh.is_local(i, j) else None
              for j, d in enumerate(row)] for i, row in enumerate(mesh.devices)]
 
 
@@ -712,33 +714,42 @@ def _launches(params, shards, regions_of, kx, ky, banded, k, pulse_on, lix,
     by_device = {}
     for row in shards:
         for s in row:
-            by_device.setdefault(s.device, []).extend(regions_of(s))
+            if s is not None:
+                by_device.setdefault(s.device, []).extend(regions_of(s))
     return [RoundLaunch(params, regions, kx, ky, banded, k, pulse_on(dev),
                         lix, liy, ref_tile)
             for dev, regions in by_device.items()]
 
 
 def _results(shards):
-    return ([[s.rec for s in row] for row in shards],
-            [[s.acc for s in row] for row in shards])
+    return ([[None if s is None else s.rec for s in row] for row in shards],
+            [[None if s is None else s.acc for s in row] for row in shards])
 
 
-def _plain_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by, k,
+def _ghosts(shards):
+    return [g for row in shards for s in row if s is not None
+            for g in s.ghosts]
+
+
+def _plain_rounds(params, mesh, statics, pulse_on, lix, liy, bx, by, k,
                   ref_tile, banded, reference, slabs):
     """The plain rounds: every round, one launch per device advances each
     of its shards on its whole extended block, its ghosts read from its
     neighbours' round-start state (in place on the same device, else from
     ghost buffers refreshed after the round: ``.to``-style copies, ordered
-    with both devices' streams). ``slabs`` takes the ghost buffers for
-    every neighbour. Returns the (rec, acc) block grids."""
+    with both devices' streams, and from other processes one
+    ``multihost.post``, waited on before the next launch). ``slabs``
+    takes the ghost buffers for every neighbour. Returns the (rec, acc)
+    block grids."""
     mx, my = mesh.shape["x"], mesh.shape["y"]
     T = params.response_length
     kx, ky = (k, k) if banded else (k if mx > 1 else 0, k if my > 1 else 0)
-    shards = _shards(mesh, beta_b, y_b, bx, by, kx, ky, T)
+    shards = _shards(mesh, *statics, bx, by, kx, ky, T)
+    remote = _link_remote(shards, kx, ky, mesh)
     _link(shards, kx, ky, slabs)
     launches = _launches(params, shards, lambda s: [(s, 0, bx)], kx, ky,
                          banded, k, pulse_on, lix, liy, ref_tile)
-    ghosts = [g for row in shards for s in row for g in s.ghosts]
+    ghosts = _ghosts(shards)
     step = _round_fn(banded, reference)
     parity = 0
     for t0 in range(0, T, k):
@@ -748,10 +759,11 @@ def _plain_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by, k,
         if t0 + k < T:
             for buf, sent, rows, cols in ghosts:
                 buf.copy_(sent[parity][:, rows, cols], non_blocking=True)
+            remote.post(parity).wait()
     return _results(shards)
 
 
-def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
+def _overlap_rounds(params, mesh, statics, pulse_on, lix, liy, bx, by,
                     k, ref_tile, banded, reference, slabs):
     """The overlap split of the rounds on a 1D ("x", N) mesh with bx >= 3k,
     counterpart of ``solver_pallas.py::_overlap_impl`` (B5) and
@@ -765,6 +777,8 @@ def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
       2. the new frames are copied into the ghost buffers of neighbours on
          other devices (``solver.py::_exchange_frames``: side streams),
          which depends only on step 1; on one device nothing is copied;
+         the frames of neighbours of other processes are posted
+         (``multihost.post``) and waited on before the next frame launch;
       3. one interior launch per device advances rows [k, bx - k) of each
          of its shards, a region whose block is the shard's own bx rows; it
          does not wait for the exchange.
@@ -778,18 +792,21 @@ def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
     """
     T = params.response_length
     ky = k if banded else 0
-    shards = _shards(mesh, beta_b, y_b, bx, by, k, ky, T)
+    shards = _shards(mesh, *statics, bx, by, k, ky, T)
+    remote = _link_remote(shards, k, ky, mesh)
     _link(shards, k, ky, slabs)
     frames = _launches(params, shards,
                        lambda s: [(s, 0, k), (s, bx - k, k)], k, ky, banded,
                        k, pulse_on, lix, liy, ref_tile)
     inner = _launches(params, shards, lambda s: [(s, k, bx - 2 * k)], k, ky,
                       banded, k, pulse_on, lix, liy, ref_tile)
-    ghosts = [g for row in shards for s in row for g in s.ghosts]
+    ghosts = _ghosts(shards)
     step = _round_fn(banded, reference)
     parity = 0
-    copies = None
+    copies = pending = None
     for t0 in range(0, T, k):
+        if pending is not None:
+            pending.wait()
         for launch in frames:
             if copies is not None:
                 copies.wait(launch.device)
@@ -797,6 +814,8 @@ def _overlap_rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
         copies = _exchange_frames(
             [(sent[1 - parity][:, rows, cols], buf)
              for buf, sent, rows, cols in ghosts])
+        if t0 + k < T:
+            pending = remote.post(1 - parity)
         for launch in inner:
             step(params, t0, k, launch, parity)
         parity ^= 1
@@ -810,7 +829,8 @@ def _moments_by_device(params, rec, acc, many):
     on = {}
     for i, row in enumerate(rec):
         for j, r in enumerate(row):
-            on.setdefault(r.device, []).append((i, j))
+            if r is not None:
+                on.setdefault(r.device, []).append((i, j))
     out = [[None] * len(row) for row in rec]
     for cells in on.values():
         got = many(params, [rec[i][j] for i, j in cells],
@@ -853,8 +873,8 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
         # a single shard exchanges nothing: the plain rounds below are
         # already free of communication
         overlap = mx > 1
-    beta_b = _blocks(mesh, "beta", beta, nx_pad, ny_pad)
-    refl_b = _blocks(mesh, "refl", refl, nx_pad, ny_pad)
+    beta_b, refl_b, statics = static_blocks("sharded", mesh, beta, refl,
+                                            nx_pad, ny_pad)
     T = params.response_length
     check_field("sharded", "pulse", pulse, (T,))
     lix, liy = int(lix), int(liy)
@@ -866,7 +886,6 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
         return _delegate_tiled_1x1(params, beta_b, refl_b, pulse, lix, liy,
                                    nx_pad, ny_pad, reference, with_moments)
 
-    y_b = [[admittance(r) for r in row] for row in refl_b]
     pulses = {}
 
     def pulse_on(dev):
@@ -876,14 +895,14 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
 
     rounds = _overlap_rounds if overlap else _plain_rounds
     ref_tile = REFERENCE_TILE if band_rows is None else _tile(band_rows)
-    rec, acc = rounds(params, mesh, beta_b, y_b, pulse_on, lix, liy, bx, by,
+    rec, acc = rounds(params, mesh, statics, pulse_on, lix, liy, bx, by,
                       k, ref_tile, banded, reference, slabs)
 
     def grid(c):
-        return [[a[c] for a in row] for row in acc]
+        return [[None if a is None else a[c] for a in row] for row in acc]
 
     res = Sharded(FdtdResult, {"pressure": rec, "onset": grid(0),
-                               "flux_x": grid(1), "flux_y": grid(2)})
+                               "flux_x": grid(1), "flux_y": grid(2)}, mesh)
     if not with_moments:
         return res, None
     # each shard's moments from its own recording, the split's included (a
@@ -892,16 +911,17 @@ def _simulate_impl(params: GridParams, beta, refl, pulse, lix, liy,
     if banded:
         moments = (fdtd_tiled.rt60_moments_tiled_reference if reference
                    else fdtd_tiled.rt60_moments_tiled)
-        s = [[moments(params, r, a[0]) for r, a in zip(*rows)]
-             for rows in zip(rec, acc)]
+        s = [[None if r is None else moments(params, r, a[0])
+              for r, a in zip(*rows)] for rows in zip(rec, acc)]
     else:
         s = _moments_by_device(params, rec, acc,
                                fdtd_fused.rt60_moments_many_reference
                                if reference else fdtd_fused.rt60_moments_many)
     mom = Sharded(Moments, {
         "e_dry": grid(3), "e_wet": grid(4), "e_total": grid(5),
-        "s0": [[v[0] for v in row] for row in s],
-        "s1": [[v[1] for v in row] for row in s]})
+        "s0": [[None if v is None else v[0] for v in row] for row in s],
+        "s1": [[None if v is None else v[1] for v in row] for row in s]},
+        mesh)
     return res, mom
 
 
@@ -995,7 +1015,7 @@ def pipeline_sharded(params: GridParams, beta, refl, pulse,
     res, mom = simulate_moments_sharded(
         params, beta, refl, pulse, listener_ix, listener_iy, mesh, nx_pad,
         ny_pad, halo=halo, band_rows=band_rows, overlap=overlap)
-    dev = mesh.first_device
+    dev = mesh.local_device
     nx, ny = params.nx, params.ny
 
     def crop(fields, name):

@@ -1,7 +1,9 @@
 """Sandbox CLI — the reference's GLFW/ImGui editor as a batch tool.
 
 Counterpart of ``planeverb_tpu/sandbox/cli.py``: the same subcommands,
-arguments and output, but ``scale`` (the scaling harness is not ported).
+arguments and output (``scale`` without the JAX CLI's projection model,
+whose constants are a TPU's: no ``--project``, ``--rate-ext`` or
+``--round-overhead-us``).
 The reference sandbox (PlaneverbSandbox/src/Editor/Editor.cpp) loads .pv
 scenes, shows live acoustic parameters in dB, plots impulse responses, and
 plays processed audio. This CLI exposes the same workflows headlessly:
@@ -12,6 +14,7 @@ plays processed audio. This CLI exposes the same workflows headlessly:
       --in voice.wav --out-dir out/
   python -m planeverb_tpu_torch sweep  -o sweep.csv
   python -m planeverb_tpu_torch grid   SmallRoom
+  python -m planeverb_tpu_torch scale  HugeRoom --grid-size 25 --resolution 750 --solver fused
   python -m planeverb_tpu_torch scenes
 
 Scene arguments accept either a .pv file path or a built-in demo scene name.
@@ -430,6 +433,44 @@ def cmd_view(args) -> int:
     return 0
 
 
+# the CPU positions ``scale --engine-device cpu`` sweeps (the JAX tests'
+# eight virtual devices)
+CPU_SCALE_POSITIONS = 8
+
+
+def cmd_scale(args) -> int:
+    # strong- (or weak-) scaling sweep of the sharded solver: every CUDA
+    # device on a card, CPU_SCALE_POSITIONS positions of the CPU there
+    import json
+
+    import torch
+
+    from planeverb_tpu_torch.config import compute_grid_params, gaussian_pulse
+    from planeverb_tpu_torch.ops import voxelize
+    from planeverb_tpu_torch.parallel.scaling import measure_scaling
+
+    if args.overlap and args.solver != "fused":
+        # fail like the other subcommands do: a clean message, not a
+        # traceback from deep inside the harness
+        print("error: --overlap needs --solver fused (the round split "
+              "lives in the fused rounds)", file=sys.stderr)
+        return 2
+    params = compute_grid_params(_config(args))
+    scene = _load_scene(args.scene)
+    beta, refl = voxelize.voxelize_np(params, scene.boxes if scene else [])
+    lix, liy = params.world_to_cell(*_xy(args.listener))
+    devices = (["cpu"] * CPU_SCALE_POSITIONS
+               if torch.device(args.engine_device).type == "cpu" else None)
+    rows = measure_scaling(params, beta, refl, gaussian_pulse(params),
+                           lix, liy, halo=args.halo, reps=args.reps,
+                           chain=args.chain, solver=args.solver,
+                           mode="weak" if args.weak else "strong",
+                           overlap=args.overlap, devices=devices)
+    for row in rows:
+        print(json.dumps(row))
+    return 0
+
+
 def cmd_scenes(args) -> int:
     from planeverb_tpu_torch.scene import save_pv
 
@@ -574,6 +615,26 @@ def main(argv=None) -> int:
                    help="run the engine sharded over an N-device mesh "
                         "(0 = single device)")
     p.set_defaults(fn=cmd_view)
+
+    p = sub.add_parser("scale", help="strong-scaling sweep of the sharded "
+                                     "solver over growing device counts")
+    common(p)
+    p.add_argument("--halo", type=int, default=8,
+                   help="multi-step halo width (exchange every k steps)")
+    p.add_argument("--reps", type=int, default=3,
+                   help="timing reps per device count (median taken)")
+    p.add_argument("--chain", type=int, default=5,
+                   help="back-to-back passes per timing rep")
+    p.add_argument("--solver", choices=("wide", "fused"), default="wide",
+                   help="sharded backend: the per-step wide-halo solver "
+                        "(plain torch) or the fused rounds (B5/B6 kernels)")
+    p.add_argument("--weak", action="store_true",
+                   help="weak scaling: hold the per-device block at this "
+                        "grid and grow the world with the device count")
+    p.add_argument("--overlap", action="store_true",
+                   help="run the overlap round split (1D meshes; needs "
+                        "--solver fused)")
+    p.set_defaults(fn=cmd_scale)
 
     p = sub.add_parser("scenes", help="list built-in demo scenes")
     p.add_argument("--export", metavar="DIR", default=None,

@@ -45,7 +45,8 @@ def test_imports_without_jax():
         for name in ("dsp", "dsp.reverb", "api", "session",
                      "sandbox.realtime", "sandbox.audio_manager",
                      "core.objects", "server", "native", "sandbox.cli",
-                     "sandbox.viewer", "sandbox.sweep", "__main__"):
+                     "sandbox.viewer", "sandbox.sweep", "__main__",
+                     "parallel.multihost", "parallel.scaling", "entry"):
             assert "planeverb_tpu_torch." + name in names, name
         print(len(names))
     """)
@@ -53,6 +54,34 @@ def test_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_scaling_holds_no_tpu_constant():
+    """parallel/scaling.py ports measure_scaling only: none of the JAX
+    module's projection model, whose constants are a TPU's (V5E_*, ICI_*,
+    DCN_*, ROUND_*)."""
+    path = os.path.join(_ROOT, "planeverb_tpu_torch", "parallel",
+                        "scaling.py")
+    tree = ast.parse(open(path).read())
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {n.name for n in ast.walk(tree)
+              if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    bad = sorted(n for n in names
+                 if n.startswith(("V5E_", "ICI_", "DCN_", "ROUND_"))
+                 or n.startswith("projected_"))
+    assert not bad, bad
+    from planeverb_tpu_torch.parallel import scaling
+
+    assert scaling.__all__ == ["measure_scaling"]
+
+
+def test_parallel_exports_the_ported_modules():
+    from planeverb_tpu_torch import parallel
+
+    for name in ("simulate_sharded", "simulate_sharded_wide",
+                 "init_distributed", "layout_by_process",
+                 "multihost_grid_mesh"):
+        assert name in parallel.__all__ and callable(getattr(parallel, name))
 
 
 def test_parallel_imports_without_jax():
