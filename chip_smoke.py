@@ -15,8 +15,13 @@ overlap split's frame copies on side streams. The headline (B5) and the
 2x1) split, every output held to B1 + B2 / B3 + B4 on the first card,
 bit for bit, with launch counts and times; then an engine server on the
 card whose ``init`` asks for a mesh of every card at the headline (B5
-behind the wire), its rows bit-equal to an ``init`` on one card; then the
-last line as below.
+behind the wire), its rows bit-equal to an ``init`` on one card; then
+phase 23's Contexts with one NCCL process a card (the headline on 2x2,
+the 126 m world with cells publish on 2x2 and on the 4x1 banded split),
+bit-equal to one process on the same cards, with each step's wall; the
+NVLink fit of the projection model (``multihost.transfer`` between two
+cards over its slab sizes) and the model beside ``measure_scaling``'s
+rows; then the last line as below.
 
 Builds the CUDA kernels from ``planeverb_tpu_torch/csrc`` and runs, one
 line per phase:
@@ -194,7 +199,23 @@ line per phase:
      a ``utils.profiling.device_trace`` of one headline ``Context.step()``
      (its five longest kernels); ``entry()`` and ``dryrun_multichip(4)``
      on the card; and ``python -m planeverb_tpu_torch scale`` as a
-     subprocess, its rows parsed.
+     subprocess, its rows parsed;
+ 23. a Context across processes: this script started twice more (gloo,
+     two positions of ``cuda:0`` each on (2, 2) and (4, 1)
+     ``multihost_grid_mesh``es), each running headline Contexts: grids
+     publish with three emitters over three steps and impulse responses
+     of a cell on each rank's shard rows, cells publish with 50 emitters,
+     two views, the 4x1 overlap split; every rank's digests bit-equal to
+     the single-process mesh and the single-device Context, B5 and B2
+     launches counted in each worker, each step's host wall; a listener
+     only rank 1 moves (both ranks raise the same ValueError, the next
+     agreed step runs) and ``stop()`` on rank 0 alone (both loops end on
+     one iteration); the projection model's fit (B5 on a 1x1 mesh at the
+     headline for halos 2-16, t_round = cells*k/rate + C by least
+     squares) and ``python -m planeverb_tpu_torch scale --project`` as a
+     subprocess; the dry run's render with 256 sources split over a 4x1
+     mesh's rows, held to one ``render_block`` at 5e-5 of each bus's peak
+     (four D1 launches).
 
 Every phase that counts a Context's calibration launch clears the
 free-field cache (``core/free_grid.py::clear_cache``) before that Context.
@@ -335,6 +356,20 @@ PER_STEP_RESOLUTION = 275
 WORKER_TIMEOUT_S = 300
 WORKER_FLAG = "--pv-worker"
 TRACE_TOP = 5
+# a Context across processes (phase 23): its steps, impulse responses on
+# rank 0's and rank 1's shard rows, the background loop's steps before
+# rank 0 stops it; the projection model's 1x1 halo sweep of B5 and its
+# reps; the NVLink fit's shard edges (the headline's and 126 m's on 2x2)
+# and exchanges a size; the dry run's split render at Unity's maximum
+# real voices on a 4x1 mesh
+CONTEXT_STEPS = 3
+CONTEXT_IR_PROBES = ((5.0, 6.0), (20.0, 18.0))
+LOOP_STEPS = 2
+SWEEP_HALOS = (2, 4, 6, 8, 12, 16)
+SWEEP_REPS = 3
+LINK_EDGES = (96, 482)
+LINK_REPS = 50
+SPLIT_SOURCES = 256
 
 
 def _require(cond, msg) -> None:
@@ -1092,7 +1127,8 @@ def _worker_main(argv) -> int:
     error against B1. With gloo (phase 22) two processes each take two
     positions of ``cuda:0`` on a 2x2 ``multihost_grid_mesh``; with nccl
     (``--cards``) each process owns one card of a 2x2 (four) or n x 1
-    mesh."""
+    mesh. With a fifth argument ``context`` it runs phase 23's Contexts
+    instead (:func:`_context_worker`)."""
     import torch
 
     import planeverb_tpu_torch as pv
@@ -1103,6 +1139,11 @@ def _worker_main(argv) -> int:
     port, rank, world, backend = argv[0], int(argv[1]), int(argv[2]), argv[3]
     parallel.init_distributed(f"127.0.0.1:{port}", num_processes=world,
                               process_id=rank, backend=backend)
+    if argv[4:] == ["context"]:
+        out = _context_worker(pv, rank, world, backend)
+        print("WORKER " + json.dumps(out), flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
     if backend == "gloo":
         dev = torch.device("cuda", 0)
         mesh = parallel.multihost_grid_mesh(local_devices=[dev, dev])
@@ -1407,6 +1448,452 @@ def _weak_inputs(pv, voxelize, gaussian_pulse, q, row, dev):
     pulse = torch.from_numpy(gaussian_pulse(q)).to(dev)
     return p, beta, refl, pulse, p.nx // 2, p.ny // 2
 
+
+
+# ------------------------------------------------------------ phase 23
+def _published_digest(ctx) -> str:
+    """SHA-256 of a Context's published snapshot: every grid, or the
+    cells rows and the device grid."""
+    import numpy as np
+
+    pub = ctx._published
+    h = hashlib.sha256()
+    if "cells" in pub:
+        for cell in sorted(pub["cells"]):
+            h.update(repr(cell).encode())
+            h.update(np.ascontiguousarray(pub["cells"][cell]).tobytes())
+        h.update(pub["packed_device"].cpu().numpy().tobytes())
+    for key in sorted(pub.keys() - {"listener", "listeners", "pressure",
+                                    "cells", "packed_device"}):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(pub[key]).tobytes())
+    return h.hexdigest()
+
+
+def _phase23_context(pv, place, size, publish="grids", emitters=EMITTERS,
+                     views=None):
+    """HugeRoom at ``size`` and 750 Hz on ``place`` (a mesh, or one
+    device), the listener at the world's center (the headline's and phase
+    9's), ``emitters`` live, ``views`` (x, z) if given."""
+    from planeverb_tpu_torch.parallel import Mesh
+
+    mesh = place if isinstance(place, Mesh) else None
+    ctx = pv.Context(pv.PlaneverbConfig(size, size, HEADLINE["resolution"]),
+                     scene=pv.demo_scene(HEADLINE["scene"]), publish=publish,
+                     mesh=mesh, device=None if mesh is not None else place)
+    ctx.set_listener_position(size / 2, 0.0, size / 2)
+    if views:
+        ctx.set_listener_positions([(x, 0.0, z) for x, z in views])
+    for x, z in emitters:
+        ctx.emissions.emit(x, 0.0, z)
+    return ctx
+
+
+# phase 23's Contexts: (name, the place's key, world size, publish,
+# emitters, views, steps, impulse responses read); gloo on one card, and
+# one NCCL process a card (``--cards``)
+CONTEXT_CASES = {
+    "gloo": (("grids", "2x2", HEADLINE["size"], "grids", EMITTERS, None,
+              CONTEXT_STEPS, True),
+             ("cells", "2x2", HEADLINE["size"], "cells", WIRE_EMITTERS, None,
+              1, False),
+             ("cells views", "2x2", HEADLINE["size"], "cells", WIRE_EMITTERS,
+              VIEWS[:2], 1, False),
+             ("split", "4x1", HEADLINE["size"], "grids", EMITTERS, None, 1,
+              True)),
+    "cards": (("grids", "2x2", HEADLINE["size"], "grids", EMITTERS, None,
+               CONTEXT_STEPS, True),
+              ("xl cells", "2x2", XL, "cells", XL_EMITTERS, None, XL_STEPS,
+               False),
+              ("xl split", "4x1", XL, "cells", XL_EMITTERS, None, XL_STEPS,
+               False)),
+}
+
+
+def _context_cases(pv, kind, places) -> dict:
+    """Each of ``CONTEXT_CASES[kind]`` on ``places`` ({key: mesh or
+    device}): {name: digest of the last publish, host walls of its steps,
+    the wrappers' launches over the steps (counts set to 0 just before
+    them), the overlap split taken, impulse-response digests}."""
+    import torch
+
+    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
+    from planeverb_tpu_torch.parallel import solver_fused
+
+    out = {}
+    for name, key, size, publish, emitters, views, steps, irs in \
+            CONTEXT_CASES[kind]:
+        ctx = _phase23_context(pv, places[key], size, publish, emitters,
+                               views)
+        fdtd_fused.reset_launch_counts()
+        walls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            ctx.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        case = {"digest": _published_digest(ctx), "walls": walls,
+                "launches": counts_of(
+                    solver_fused.sharded_round, solver_fused.banded_round,
+                    fdtd_fused.rt60_moments_many,
+                    fdtd_tiled.rt60_moments_tiled),
+                "overlap": bool(getattr(ctx, "_overlap", False))}
+        if irs:
+            case["irs"] = [hashlib.sha256(ctx.get_impulse_response(x, z)
+                                          .tobytes()).hexdigest()
+                           for x, z in CONTEXT_IR_PROBES]
+        out[name] = case
+        del ctx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _agree_checks(pv, mesh, rank) -> dict:
+    """On a Context of every rank: a listener only rank 1 moves (every
+    rank must raise the same ValueError), an agreed step after it, then
+    the background loop with ``stop()`` on rank 0 alone."""
+    ctx = _phase23_context(pv, mesh, HEADLINE["size"])
+    out = {}
+    if rank == 1:
+        ctx.set_listener_position(HEADLINE["size"] / 2 + 0.5, 0.0,
+                                  HEADLINE["size"] / 2)
+    try:
+        ctx.step()
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    out["refused_iteration"] = ctx.iteration
+    ctx.set_listener_position(HEADLINE["size"] / 2, 0.0, HEADLINE["size"] / 2)
+    ctx.step()
+    out["after"] = _published_digest(ctx)
+    start = ctx.iteration
+    ctx.start()
+    if rank == 0:
+        out["loop_reached"] = ctx.wait_for_iteration(start + LOOP_STEPS,
+                                                     timeout=120)
+        ctx.stop()
+    else:
+        deadline = time.monotonic() + 120
+        while ctx.background_running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out["loop_ended_alone"] = not ctx.background_running
+        ctx.stop()
+    out["stopped_at"] = ctx.iteration - start
+    out["loop_error"] = repr(ctx.error)
+    return out
+
+
+def _link_exchanges(rank, dev) -> list:
+    """Ranks 0 and 1 exchange slabs of 3 x k x edge float32 both ways at
+    once (``multihost.transfer``, as a round's ghosts cross), LINK_REPS
+    times back to back: [{bytes, s}] of one exchange, on rank 0 and 1; the
+    other ranks wait."""
+    import torch
+    import torch.distributed as dist
+
+    from planeverb_tpu_torch.parallel import multihost
+
+    rows = []
+    for edge in LINK_EDGES:
+        for k in SWEEP_HALOS:
+            n = 3 * k * edge
+            dist.barrier(device_ids=[dev.index])
+            if rank > 1:
+                continue
+            peer = 1 - rank
+            x = torch.full((n,), float(rank + 1), device=dev)
+            buf = torch.zeros(n, device=dev)
+            for _ in range(3):
+                multihost.transfer([(x, peer, 0)], [(buf, peer, 0)])
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(LINK_REPS):
+                multihost.transfer([(x, peer, 0)], [(buf, peer, 0)])
+            torch.cuda.synchronize(dev)
+            rows.append({"bytes": 4 * n,
+                         "s": (time.perf_counter() - t0) / LINK_REPS})
+            _require(bool((buf == peer + 1).all()),
+                     f"rank {rank}: the exchange delivered the wrong slab")
+    dist.barrier(device_ids=[dev.index])
+    return rows
+
+
+def _context_worker(pv, rank, world, backend) -> dict:
+    """Phase 23's worker: with gloo two positions of ``cuda:0`` a process
+    on (2, 2) and (4, 1) ``multihost_grid_mesh``es, the gloo cases and the
+    agreement checks; with nccl one card a process on a 2x2 (or n x 1)
+    and an n x 1 mesh, the cards' cases and the NVLink exchanges."""
+    import torch
+
+    from planeverb_tpu_torch import parallel
+
+    if backend == "gloo":
+        dev = torch.device("cuda", 0)
+        places = {"2x2": parallel.multihost_grid_mesh(local_devices=[dev,
+                                                                     dev]),
+                  "4x1": parallel.multihost_grid_mesh((4, 1),
+                                                      local_devices=[dev,
+                                                                     dev])}
+        _require(places["2x2"].ranks == [[0, 0], [1, 1]]
+                 and places["4x1"].ranks == [[0], [0], [1], [1]],
+                 f"worker {rank}: meshes {places}")
+        out = {"rank": rank, "cases": _context_cases(pv, "gloo", places)}
+        out.update(_agree_checks(pv, places["2x2"], rank))
+        return out
+    dev = torch.device("cuda", rank)
+    cards = [f"cuda:{r}" for r in range(world)]
+    places = {"2x2": _cards_mesh(parallel, world, cards, list(range(world))),
+              "4x1": parallel.Mesh([[c] for c in cards],
+                                   [[r] for r in range(world)])}
+    return {"rank": rank, "cases": _context_cases(pv, "cards", places),
+            "link": _link_exchanges(rank, dev)}
+
+
+def _hold_cases(results, refs, kind, label, tag) -> None:
+    """Hold every worker's cases to the references ({what: cases}) bit for
+    bit, require the path's launches (B5 or B6 rounds, and their moments)
+    in every worker's steps, and print each case's step walls."""
+    for name, *_ in CONTEXT_CASES[kind]:
+        for res in results:
+            case = res["cases"][name]
+            for what, ref in refs.items():
+                _require(case["digest"] == ref[name]["digest"]
+                         and case.get("irs") == ref[name].get("irs"),
+                         f"{name}: rank {res['rank']} differs from {what}")
+            n = case["launches"]
+            _require(n["sharded_round"] + n["banded_round"] > 0
+                     and n["rt60_moments_many"] + n["rt60_moments_tiled"] > 0,
+                     f"{name}: rank {res['rank']} launched {n}")
+        overlap = results[0]["cases"][name]["overlap"]
+        _require(overlap == ("split" in name),
+                 f"{name}: overlap split taken {overlap}")
+        print(f"{tag} Context across processes, {name}"
+              f"{' (the overlap split)' if overlap else ''}: every rank's "
+              f"publish{' and impulse responses' if 'irs' in results[0]['cases'][name] else ''} "
+              f"bit-equal to {' and '.join(refs)}; launches "
+              + "; ".join(f"rank {r['rank']} {r['cases'][name]['launches']}"
+                          for r in results)
+              + "; step host walls "
+              + "; ".join(f"rank {r['rank']} " + ", ".join(
+                  f"{w:.1f}" for w in r["cases"][name]["walls"])
+                  for r in results) + f" ms ({label})", flush=True)
+
+
+def _halo_sweep(hl, label) -> tuple:
+    """The projection model's fit on one card: B5 on a 1x1 mesh at the
+    headline for each halo k of SWEEP_HALOS, CUDA-event medians of a pass
+    over its rounds, fitted by least squares to t_round = cells * k /
+    rate + C (cells unpadded). Returns (rate, C, max relative residual)."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.parallel import scaling, solver_fused
+
+    q = hl[0]
+    mesh = parallel.grid_mesh(["cuda:0"], (1, 1))
+    args = _padded_args(parallel, hl, mesh)
+    cells = args[7] * args[8]
+    xs, ts = [], []
+    for k in SWEEP_HALOS:
+        rounds = -(-q.response_length // k)
+        solver_fused.sharded_round.launches = 0
+        ms = _cuda_ms(lambda k=k: parallel.simulate_sharded_fused(
+            *args, halo=k), SWEEP_REPS)
+        _require(solver_fused.sharded_round.launches
+                 == rounds * (1 + SWEEP_REPS),
+                 f"halo {k}: {solver_fused.sharded_round.launches} B5 "
+                 f"launches")
+        xs.append(cells * k)
+        ts.append(ms * 1e-3 / rounds)
+    a = np.stack([np.asarray(xs, np.float64), np.ones(len(xs))], axis=1)
+    (slope, c), *_ = np.linalg.lstsq(a, np.asarray(ts), rcond=None)
+    fit = a @ np.array([slope, c])
+    resid = float(np.max(np.abs(fit - ts) / ts))
+    rate = 1.0 / slope
+    torch.cuda.empty_cache()
+    print(f"phase 23 halo sweep (B5, 1x1 mesh, {q.nx}x{q.ny}x"
+          f"{q.response_length}, CUDA-event medians of {SWEEP_REPS}): "
+          + ", ".join(f"k {k} {t * 1e6:.3f} us a round" for k, t in
+                      zip(SWEEP_HALOS, ts))
+          + f"; fit t_round = cells*k/rate + C: rate {rate:.6e} cells/s, "
+          f"C {c * 1e6:.4f} us, max residual {resid:.4f} of the round; the "
+          f"committed ROUND_RATE_CUPS {scaling.ROUND_RATE_CUPS:.6e}, "
+          f"ROUND_OVERHEAD_S {scaling.ROUND_OVERHEAD_S * 1e6:.4f} us "
+          f"({label})", flush=True)
+    return rate, c, resid
+
+
+def _context_phase(pv, card, label, root):
+    """Phase 23: a Context on a mesh of two gloo processes on the card,
+    held bit for bit to one process and to the single-device Context;
+    the agreement's refusal and the agreed stop; the projection model's
+    halo sweep and fit, and ``scale --project`` as a subprocess; the dry
+    run's source-split render at 256 sources."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.config import PlaneverbDSPConfig, gaussian_pulse
+    from planeverb_tpu_torch.dsp import (SourceParams, init_state, lowpass,
+                                        render_block)
+    from planeverb_tpu_torch.entry import (DSP_SPLIT_REL_TOL, _bus_rel,
+                                           _render_by_rows)
+    from planeverb_tpu_torch.ops import fdtd_fused, voxelize
+    from planeverb_tpu_torch.sandbox.cli import PROJECT_COUNTS
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    # -- two gloo processes, two positions of the card each
+    t0 = time.perf_counter()
+    results = _run_workers(root, lambda port, rank: [
+        str(port), str(rank), "2", "gloo", "context"], 2, WORKER_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    one_card = ["cuda:0"] * 4
+    refs = {"one process": _context_cases(pv, "gloo", {
+        "2x2": parallel.grid_mesh(one_card, (2, 2)),
+        "4x1": parallel.grid_mesh(one_card, (4, 1))}),
+        "one device": _context_cases(pv, "gloo", {"2x2": dev, "4x1": dev})}
+    _hold_cases(results, refs, "gloo", label, "phase 23")
+    r0, r1 = results
+    _require(r0["refused"] is not None and r0["refused"] == r1["refused"]
+             and "'listeners'" in r0["refused"]
+             and r0["refused_iteration"] == r1["refused_iteration"] == 0,
+             f"the refusal: {r0['refused']!r} / {r1['refused']!r}")
+    _require(r0["after"] == r1["after"]
+             == refs["one process"]["grids"]["digest"],
+             "the step after the refusal differs")
+    _require(r0["loop_reached"] and r1["loop_ended_alone"]
+             and r0["stopped_at"] == r1["stopped_at"] > LOOP_STEPS
+             and r0["loop_error"] == r1["loop_error"] == "None",
+             f"the agreed stop: {r0} / {r1}")
+    print(f"phase 23 agree: a listener only rank 1 moved refused on both "
+          f"ranks with {r0['refused']!r}, the next agreed step bit-equal; "
+          f"stop() on rank 0 alone ended both loops after "
+          f"{r0['stopped_at']} steps; the two workers took {workers_s:.1f} "
+          f"s", flush=True)
+
+    # -- the projection model: the halo sweep's fit and scale --project
+    hl = _large_inputs(pv, voxelize, gaussian_pulse, HEADLINE["size"], dev)
+    rate, c_round, _ = _halo_sweep(hl, label)
+    proc = subprocess.run(
+        [sys.executable, "-m", "planeverb_tpu_torch", "scale",
+         HEADLINE["scene"], "--grid-size", f"{HEADLINE['size']:g}",
+         "--resolution", str(HEADLINE["resolution"]), "--project"],
+        cwd=root, capture_output=True, text=True, timeout=WORKER_TIMEOUT_S)
+    _require(proc.returncode == 0, f"scale --project exited "
+                                   f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    _require([r["devices"] for r in rows] == list(PROJECT_COUNTS)
+             and rows[0]["efficiency"] == 1.0, proc.stdout)
+    print("phase 23 python -m planeverb_tpu_torch scale HugeRoom --project "
+          "(the committed constants), 1, 2 and 4 cards: "
+          + "; ".join(json.dumps(r) for r in rows if r["devices"] <= 4)
+          + f"; with this run's fit (rate {rate:.4e}, C "
+          f"{c_round * 1e6:.3f} us): " + "; ".join(
+              json.dumps(r) for r in parallel.scaling.projected_efficiency(
+                  hl[0].nx, hl[0].ny, [1, 2, 4], rate, round_overhead_s=c_round))
+          + " (measure_scaling over distinct cards: chip_smoke.py --cards)",
+          flush=True)
+
+    # -- the dry run's render, its sources split over a 4x1 mesh's rows
+    rng = np.random.default_rng(23)
+    s = SPLIT_SOURCES
+    dirs = rng.standard_normal((s, 2)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    fields = dict(occlusion=rng.uniform(0.1, 1.0, s),
+                  wet_gain=rng.uniform(0.1, 1.0, s),
+                  rt60=rng.uniform(0.2, 3.5, s),
+                  lowpass=np.geomspace(20.0, 20000.0, s), direction=dirs,
+                  position=rng.uniform(0, HEADLINE["size"], (s, 2)),
+                  forward=rng.standard_normal((s, 2)),
+                  directivity=dirs[::-1].copy(), pattern=np.arange(s) % 2)
+    target = SourceParams(**{
+        k: torch.as_tensor(np.asarray(v), dtype=torch.int32
+                           if k == "pattern" else torch.float32).to(dev)
+        for k, v in fields.items()})
+    audio = torch.from_numpy((rng.standard_normal((s, AUDIO_FRAMES, 2))
+                              * 0.3).astype(np.float32)).to(dev)
+    dcfg = PlaneverbDSPConfig(max_callback_length=AUDIO_FRAMES)
+    state = init_state(s, device=dev)
+    listener = ((12.5, 0.0, 12.5), (1.0, 0.0, 0.0))
+    mesh41 = parallel.grid_mesh(one_card, (4, 1))
+    one, _ = render_block(dcfg, audio, target, state, *listener)
+    fdtd_fused.reset_launch_counts()
+    split = _render_by_rows(dcfg, audio, target, state, *listener, mesh41)
+    torch.cuda.synchronize()
+    d1 = lowpass.process_scan.launches
+    rel = _bus_rel(split, one)
+    _require(d1 == 4 and rel <= DSP_SPLIT_REL_TOL
+             and all(torch.isfinite(b).all() for b in split),
+             f"the split render: D1 launches {d1}, rel {rel}")
+    print(f"phase 23 the dry run's render, {s} sources of {AUDIO_FRAMES} "
+          f"frames split over a 4x1 mesh's rows: buses vs one render_block "
+          f"max rel {rel:.3e} of each bus's peak (bound "
+          f"{DSP_SPLIT_REL_TOL:g}); D1 launches {d1} (one a row)",
+          flush=True)
+    print(f"phase 23 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+def _contexts_across_cards(pv, card, root, measured) -> None:
+    """``--cards``, last: one NCCL process a card running phase 23's cards
+    cases (the headline on 2x2, the 126 m world with cells publish on 2x2
+    and the 4x1 banded split), bit-equal to one process on the same cards;
+    then the NVLink fit and the projection model beside ``measured``
+    (measure_scaling's rows over the distinct cards)."""
+    import numpy as np
+    import torch
+
+    from planeverb_tpu_torch import parallel
+    from planeverb_tpu_torch.parallel import scaling
+
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    label = f"{n} x {card}"
+    t0 = time.perf_counter()
+    results = _run_workers(root, lambda port, rank: [
+        str(port), str(rank), str(n), "nccl", "context"], n,
+        WORKER_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    cards = [f"cuda:{i}" for i in range(n)]
+    refs = {"one process on the same cards": _context_cases(pv, "cards", {
+        "2x2": _cards_mesh(parallel, n, cards, None),
+        "4x1": parallel.grid_mesh(cards, (n, 1))})}
+    _hold_cases(results, refs, "cards", label, "cards")
+    link = results[0]["link"]
+    a = np.stack([np.asarray([r["bytes"] for r in link], np.float64),
+                  np.ones(len(link))], axis=1)
+    ts = np.asarray([r["s"] for r in link])
+    (slope, lat), *_ = np.linalg.lstsq(a, ts, rcond=None)
+    resid = float(np.max(np.abs(a @ np.array([slope, lat]) - ts) / ts))
+    print(f"cards NVLink fit (multihost.transfer between cuda:0 and cuda:1, "
+          f"both ways at once, {LINK_REPS} back to back): "
+          + ", ".join(f"{r['bytes']} B {r['s'] * 1e6:.3f} us" for r in link)
+          + f"; t = bytes/rate + latency: rate {1e-9 / slope:.4f} GB/s, "
+          f"latency {lat * 1e6:.4f} us, max residual {resid:.4f}; the "
+          f"committed NVLINK_GBPS {scaling.NVLINK_GBPS}, NVLINK_LATENCY_S "
+          f"{scaling.NVLINK_LATENCY_S * 1e6:.4f} us ({label})", flush=True)
+    q = pv.compute_grid_params(pv.PlaneverbConfig(
+        HEADLINE["size"], HEADLINE["size"], HEADLINE["resolution"]))
+    for r in measured:
+        mx, my = r["mesh"]
+        k = r["halo"]
+        tc, tx, _ = scaling._t_round(mx, my, k, -(-q.nx // mx),
+                                     -(-q.ny // my), scaling.ROUND_RATE_CUPS,
+                                     scaling.CHIPS_PER_HOST, False)
+        model_ms = -(-q.response_length // k) * (tc + tx) * 1e3
+        print(f"cards projection model at measure_scaling's {mx}x{my} mesh "
+              f"and halo {k}: {model_ms:.3f} ms a pass (t_comp "
+              f"{tc * 1e6:.2f} us + t_comm {tx * 1e6:.2f} us a round) vs "
+              f"measured {r['wall_s'] * 1e3:.3f} ms ({label})", flush=True)
+    proj = scaling.projected_efficiency(q.nx, q.ny, [1, 2, 4])
+    print("cards projected_efficiency (the committed constants), 1, 2 and 4 "
+          "cards: " + "; ".join(json.dumps(r) for r in proj)
+          + "; measure_scaling efficiency_vs_1 " + ", ".join(
+              f"{r['devices']}: {r['efficiency_vs_1']}" for r in measured)
+          + f" ({label})", flush=True)
+    print(f"cards Context processes: the {n} workers took {workers_s:.1f} s",
+          flush=True)
 
 
 def _same(a, b) -> bool:
@@ -2580,6 +3067,7 @@ def _processes_across_cards(pv, card, root) -> None:
               f"{json.dumps(r)} ({label})", flush=True)
     print(f"cards processes: the {n} workers took {workers_s:.1f} s",
           flush=True)
+    return rows
 
 
 def _server_across_cards(pv, card) -> None:
@@ -2670,7 +3158,8 @@ def main() -> int:
         kernels.build(force=True)
         _across_cards(pv, kernels, torch.device("cuda", 0), card)
         _server_across_cards(pv, card)
-        _processes_across_cards(pv, card, root)
+        measured = _processes_across_cards(pv, card, root)
+        _contexts_across_cards(pv, card, root, measured)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4118,6 +4607,8 @@ def main() -> int:
     _native_audio_phase(pv, kernels, card, label, audio19["reports"])
     # -- 22. the last ported modules
     _scaling_phase(pv, card, label, root)
+    # -- 23. a Context across processes, the projection model, the split DSP
+    _context_phase(pv, card, label, root)
 
     b3_err = max(v[1] for r in b3.values() for v in r["vs_plain"].values())
     b4_xl = b4[xshape]

@@ -34,6 +34,20 @@ launch, the frames' exchange across devices, and an interior launch that
 does not wait for it. The published grids equal the single-device step's
 bit for bit.
 
+A mesh may span several processes (``parallel.multihost_grid_mesh`` over
+``torch.distributed``): every rank builds the same Context on it and calls
+the same methods in the same order, and each runs only its own shards,
+calibrates on its own first device and publishes the same grids (the
+analysis inputs are assembled on every rank, as JAX's replicated outputs
+are). Each step first holds its host inputs equal on every rank
+(``multihost.agree``: the listeners, the geometry, the publish mode, the
+wanted cells, the lazy-directions switch) and raises the same
+``ValueError`` on every rank where they differ. ``stop()`` on any rank
+raises a stop flag that rides the next step's agreement, so every rank's
+loop ends on the same iteration. The hazard that remains: a rank that
+fails or dies inside a step's collectives leaves the others blocked in
+them until the process group's timeout.
+
 Publish modes:
 
   - ``"grids"``: one packed [gx, gy, 9] host copy per step. With lazy
@@ -74,6 +88,7 @@ from planeverb_tpu_torch.ops import voxelize
 from planeverb_tpu_torch.ops.doa import walk_direction
 from planeverb_tpu_torch.ops.fdtd_fused import (pipeline_auto,
                                                pipeline_auto_batch)
+from planeverb_tpu_torch.parallel import multihost
 from planeverb_tpu_torch.parallel.mesh import Mesh, pad_to_mesh
 from planeverb_tpu_torch.parallel.solver import shard_fields
 from planeverb_tpu_torch.parallel.solver_fused import pipeline_sharded
@@ -146,8 +161,10 @@ class Context:
         CPU; a ``device`` of another type raises), in rounds of ``halo``
         steps between ghost exchanges; the default halo is the largest
         power of two up to 16 that fits a shard. Calibration runs on the
-        mesh's first device, and the published grids equal the
-        single-device Context's. On a 1D ("x", N) mesh with N > 1 whose
+        calling process's first device of the mesh, and the published
+        grids equal the single-device Context's. On a mesh of several
+        processes every rank builds this Context and steps it in turn
+        (see the module docstring). On a 1D ("x", N) mesh with N > 1 whose
         shards have at least 3 * halo rows the step takes the overlap
         split of the rounds (``_overlap``, the JAX Context's rule), which
         publishes the same bits. The rule reads the shard rows bx of this
@@ -204,12 +221,7 @@ class Context:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.Mesh (grid_mesh), "
                                 f"got {type(mesh).__name__}")
-            if mesh.multi_process:
-                raise ValueError(
-                    "Context(mesh=...): the mesh has positions of other "
-                    "processes; a Context drives a single-process mesh (a "
-                    "Context across processes is not ported)")
-            self.device = mesh.first_device
+            self.device = mesh.local_device
             if device is not None and torch.device(device).type \
                     != mesh.device_type:
                 raise ValueError(
@@ -225,6 +237,9 @@ class Context:
         self.config = config
         self.params: GridParams = params
         self.mesh = mesh
+        # a mesh of several processes: every step agrees its inputs first
+        self._multi_process = mesh is not None and mesh.multi_process
+        self._stop_flag = False
         if mesh is not None:
             self._nx_pad, self._ny_pad = pad_to_mesh(params.nx, params.ny,
                                                      mesh)
@@ -356,10 +371,20 @@ class Context:
         self._thread.start()
 
     def stop(self) -> None:
-        self._running = False
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+        """End the background loop. On a mesh of several processes it
+        raises the stop flag instead: the next step agrees it on every
+        rank, and every rank's loop finishes that step and ends, so all
+        ranks stop on the same iteration; a rank whose loop ends that way
+        still calls ``stop()`` to join it."""
+        if self._thread is None:
+            return
+        if self._multi_process:
+            self._stop_flag = True
+        else:
+            self._running = False
+        self._thread.join()
+        self._thread = None
+        self._stop_flag = False
 
     def _loop(self) -> None:
         import traceback
@@ -376,8 +401,8 @@ class Context:
                 return
 
     # ------------------------------------------------------------ iteration
-    def _sync_fields(self) -> None:
-        version, boxes = self.geometry.snapshot()
+    def _sync_fields(self, snapshot) -> None:
+        version, boxes = snapshot
         if version == self._fields_version:
             return
         with self.timer.stage("voxelize"):
@@ -391,11 +416,14 @@ class Context:
                 refl = torch.from_numpy(r).to(self.device)
             if self.mesh is not None:
                 # pad to the mesh (beta = 0, silent) and keep the shards,
-                # each on its mesh device
+                # each on its mesh device; on a mesh of several processes
+                # the whole padded fields, from which each pass cuts this
+                # process's shards (only state crosses processes)
                 pad = (0, self._ny_pad - self.params.ny,
                        0, self._nx_pad - self.params.nx)
-                beta, refl = shard_fields(self.mesh, F.pad(beta, pad),
-                                          F.pad(refl, pad))
+                beta, refl = F.pad(beta, pad), F.pad(refl, pad)
+                if not self._multi_process:
+                    beta, refl = shard_fields(self.mesh, beta, refl)
             self._beta, self._refl = beta, refl
             self._fields_version = version
 
@@ -408,7 +436,10 @@ class Context:
         """One background-loop iteration: sim -> analyze -> publish.
 
         Thread-safe: concurrent callers serialize on a step lock, so a
-        manual step can never interleave with the background loop's.
+        manual step can never interleave with the background loop's. On a
+        mesh of several processes every rank calls it in turn: it is a
+        collective, and it raises the same ``ValueError`` on every rank
+        whose inputs differ from rank 0's.
         """
         with self._step_lock:
             self._step_locked()
@@ -423,9 +454,12 @@ class Context:
             self._coverage_checked = True
             for px, _, pz in listeners:
                 self._warn_if_uncovered(px, pz)
-        self._sync_fields()
+        if self._multi_process:
+            snapshot, wanted = self._agreed_inputs(listeners)
+        else:
+            snapshot, wanted = self._inputs()
+        self._sync_fields(snapshot)
         views = [(lx, lz) for lx, _, lz in listeners]
-        wanted = self._wanted_cells() if self._publish_cells else None
         with self.timer.stage("simulate+analyze"):
             pressure, packed = self._pass(views, multi is not None)
             # the single host copy: the packed grids, or on cells publish
@@ -460,6 +494,50 @@ class Context:
         with self._iter_cond:
             self._iteration += 1
             self._iter_cond.notify_all()
+
+    def _inputs(self):
+        """This step's host inputs besides the listeners: the geometry
+        snapshot and, on cells publish, the wanted cells."""
+        wanted = self._wanted_cells() if self._publish_cells else None
+        return self.geometry.snapshot(), wanted
+
+    # the host inputs a step on a mesh of several processes holds equal on
+    # every rank (``_agreed_inputs``)
+    _AGREED = ("listeners", "geometry_version", "boxes", "publish", "cells",
+               "lazy_directions", "error")
+
+    def _agreed_inputs(self, listeners):
+        """:meth:`_inputs`, held equal on every rank with the listeners and
+        the switches, and the loop stopped where any rank raised the stop
+        flag. An error in reading them rides the agreement, so every rank
+        raises the same ValueError (chained, on the rank that failed, to
+        its own error)."""
+        failed = None
+        try:
+            snapshot, wanted = self._inputs()
+            version, boxes = snapshot
+            items = {
+                "listeners": np.asarray(listeners, np.float32),
+                "geometry_version": version,
+                "boxes": voxelize.boxes_to_array(boxes).tobytes(),
+                "publish": "cells" if self._publish_cells else "grids",
+                "cells": None if wanted is None else
+                np.asarray(wanted, np.int64).reshape(-1, 2),
+                "lazy_directions": self._lazy_doa,
+                "error": None}
+        except Exception as e:  # noqa: BLE001 — raised below, on every rank
+            failed = e
+            items = dict.fromkeys(self._AGREED)
+            items["error"] = f"{type(e).__name__}: {e}"
+        try:
+            stop = multihost.agree(items, flag=self._stop_flag)
+        except ValueError as e:
+            raise e from failed
+        if failed is not None:
+            raise failed
+        if stop:
+            self._running = False     # every rank's loop ends after this step
+        return snapshot, wanted
 
     def _pass(self, views, multi: bool):
         """One pass for every view -> (recording, packed grids): the
@@ -627,7 +705,21 @@ class Context:
         a snapshot of several listeners, whose recordings are not kept (B
         of them would multiply the recording memory). The IR is float32
         (a bf16 recording is cast on the device).
+
+        On a mesh of several processes it is a collective, as indexing a
+        global array is in JAX: every rank must call it with the same
+        position, in the same order relative to its steps (so not while
+        the background loop runs), and every rank returns the same array,
+        broadcast from the process that owns the cell's shard. It takes
+        the step lock, so it never interleaves with a step of this
+        process. The empty answers above need no collective.
         """
+        if self._multi_process:
+            with self._step_lock:
+                return self._impulse_response(x, z)
+        return self._impulse_response(x, z)
+
+    def _impulse_response(self, x: float, z: float) -> np.ndarray:
         published = self._published
         if published is None:
             return np.zeros(self.params.response_length, np.float32)
@@ -637,6 +729,16 @@ class Context:
         cx, cy = p.world_to_cell(x, z)
         if not (0 <= cx < p.nx and 0 <= cy < p.ny):
             return np.zeros(0, np.float32)
+        if self._multi_process:
+            # the owner's column, broadcast to every rank
+            mesh = self.mesh
+            i = cx // (self._nx_pad // mesh.shape["x"])
+            j = cy // (self._ny_pad // mesh.shape["y"])
+            col = (published["pressure"].at("pressure", cx, cy)
+                   .to(self.device).contiguous() if mesh.is_local(i, j)
+                   else torch.empty(p.response_length, dtype=torch.float32,
+                                    device=self.device))
+            return multihost.broadcast(col, mesh.ranks[i][j]).cpu().numpy()
         if self.mesh is not None:   # the owning shard's recording
             return published["pressure"].at("pressure", cx, cy).cpu().numpy()
         return published["pressure"][:, cx, cy].float().cpu().numpy()

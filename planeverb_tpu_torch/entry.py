@@ -8,7 +8,8 @@ with its example arguments on the device.
 
 ``dryrun_multichip(n)`` runs the JAX dry run's sequence once on an
 n-position mesh at tiny shapes: the per-step sharded solver, the analysis
-and a DSP block; the wide-halo solver; the fused rounds (B5, and B6 forced
+and a DSP block with its sources split over the mesh's x rows; the
+wide-halo solver; the fused rounds (B5, and B6 forced
 with ``band_rows``, bit-equal); the overlap split on a 1D mesh (bit-equal to
 the plain rounds, plain and banded); a Context on the mesh against a
 single-device one; and two listeners on the mesh.
@@ -29,6 +30,11 @@ import numpy as np
 import torch
 
 __all__ = ["entry", "dryrun_multichip"]
+
+# the source-split render against one render_block call: the split changes
+# the order of the sum over sources (ROADMAP C1's bound for render_block,
+# relative to each bus's peak)
+DSP_SPLIT_REL_TOL = 5e-5
 
 
 def _params(grid_m: float = 10.0, resolution: int = 275):
@@ -83,12 +89,58 @@ def _mesh_devices(n: int, dev: torch.device) -> list[str]:
     return [f"cuda:{i % count}" for i in range(n)]
 
 
+def _render_by_rows(config, audio, target, state, listener_pos,
+                    listener_fwd, mesh):
+    """``dsp.render_block`` with the S sources split over the mesh's x rows,
+    as the JAX dry run shards them (``P("x")``): the first device of row i
+    renders sources [i * S / mx, (i + 1) * S / mx) in one call (one D1
+    launch), and the four buses are summed on the mesh's first device in
+    row order. The split changes the order of the sum over sources, so the
+    buses equal one call on one device only to within rounding
+    (:data:`DSP_SPLIT_REL_TOL`). Returns the buses; the rows' new states
+    are dropped, as the dry run drops its state."""
+    from planeverb_tpu_torch.dsp import DSPState, SourceParams, render_block
+
+    mx = mesh.shape["x"]
+    s = audio.shape[0]
+    if s % mx:
+        raise ValueError(f"{s} sources do not split over {mx} mesh rows")
+    per = s // mx
+    dev0 = mesh.first_device
+    total = None
+    for i in range(mx):
+        dev = mesh.devices[i][0]
+        rows = slice(i * per, (i + 1) * per)
+
+        def cut(t, rows=rows, dev=dev):
+            return t[rows].to(dev)
+
+        part = DSPState(SourceParams(*map(cut, state.current)),
+                        cut(state.lpf_y1), cut(state.lpf_y2))
+        buses, _ = render_block(config, cut(audio),
+                                SourceParams(*map(cut, target)), part,
+                                listener_pos, listener_fwd)
+        buses = [b.to(dev0) for b in buses]
+        total = buses if total is None else [a + b for a, b in
+                                             zip(total, buses)]
+    return tuple(total)
+
+
+def _bus_rel(got, want) -> float:
+    """The largest difference of two renders' buses, relative to each
+    bus's peak."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                1e-30)
+               for g, w in zip(got, want))
+
+
 def dryrun_multichip(n_devices: int, device=None) -> str:
     """One sharded pipeline step and its variants on an ``n_devices``-
     position mesh (tiny shapes: SmallRoom at 4 m and 275 Hz, 32 steps),
     each checked as the JAX dry run checks it. Returns its summary line
-    (also printed). The DSP block runs on the mesh's first device: the
-    port has no sharded DSP (the JAX dry run shards the sources over x)."""
+    (also printed). The DSP block's sources are split over the mesh's x
+    rows (:func:`_render_by_rows`) and held to one render on the mesh's
+    first device."""
     from planeverb_tpu_torch.config import (PlaneverbConfig,
                                             PlaneverbDSPConfig,
                                             gaussian_pulse)
@@ -124,7 +176,7 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     lix, liy = params.world_to_cell(2.0, 2.0)
     args = (params, bpad, rpad, pulse, lix, liy, mesh, nx_pad, ny_pad)
 
-    # DSP: 2 * mx sources, on the first device
+    # DSP: 2 * mx sources, split over the mesh's x rows
     s, frames = 2 * mesh.shape["x"], 64
     dsp_cfg = PlaneverbDSPConfig(max_callback_length=frames)
     audio = torch.full((s, frames, 2), 0.1, dtype=torch.float32, device=dev0)
@@ -150,10 +202,15 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
         position=ones2, forward=ones2,
         directivity=out.source_directivity[cx, cy].expand(s, 2).contiguous(),
         pattern=torch.ones(s, dtype=torch.int32, device=dev0))
-    buses, _ = render_block(dsp_cfg, audio, target, state, [0.0, 0.0, 0.0],
-                            [1.0, 0.0, 0.0])
+    listener = ([0.0, 0.0, 0.0], [1.0, 0.0, 0.0])
+    buses = _render_by_rows(dsp_cfg, audio, target, state, *listener, mesh)
     if not all(torch.isfinite(b).all() for b in buses):
         raise AssertionError("dryrun: the DSP buses are not finite")
+    one, _ = render_block(dsp_cfg, audio, target, state, *listener)
+    dsp_rel = _bus_rel(buses, one)
+    if not dsp_rel <= DSP_SPLIT_REL_TOL:
+        raise AssertionError(f"dryrun: the source-split buses differ from "
+                             f"one render by {dsp_rel:.3e} of the peak")
 
     # the wide-halo variant (k-step ghost exchange)
     k = max(1, min(2, nx_pad // mesh.shape["x"], ny_pad // mesh.shape["y"]))
@@ -211,7 +268,8 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
             raise AssertionError(f"dryrun: listener {listener} invalid")
     line = (f"dryrun_multichip: mesh={dict(mesh.shape)} on {devices} "
             f"grid={nx_pad}x{ny_pad} T={params.response_length} "
-            f"sources={s} wide_halo=k{k} fused_sharded=ok banded=ok "
+            f"sources={s} dsp_rows={mesh.shape['x']}(rel {dsp_rel:.1e}) "
+            f"wide_halo=k{k} fused_sharded=ok banded=ok "
             f"overlap_1d=ok(mesh={len(devices)}x1, halo={k1}, bit-equal) "
             f"context_sharded=ok(halo={ctx_mesh._halo}, "
             f"pad={ctx_mesh._nx_pad}x{ctx_mesh._ny_pad}, "

@@ -24,21 +24,34 @@ its own positions. Three concerns live here:
    receive, host -> device); NCCL moves device tensors directly, and its
    ``work.wait()`` orders its own streams with the current one.
 
+4. :func:`agree` holds the host inputs of a step equal on every process
+   (what SPMD requires of the JAX program): each rank all-gathers a
+   fixed-size digest of its items, and every rank raises the same
+   ``ValueError`` where they differ. Nothing is broadcast: no rank's state
+   is ever replaced by another's.
+
 NCCL refuses two ranks on one card, so several processes sharing a card
 use gloo; nothing here picks a backend on its own.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from planeverb_tpu_torch.parallel.mesh import Mesh, factor_mesh
 
 __all__ = ["init_distributed", "layout_by_process", "multihost_grid_mesh",
-           "Pending", "post", "transfer", "broadcast"]
+           "Pending", "post", "transfer", "broadcast", "agree"]
+
+# agree's digest: up to AGREE_ITEMS items, each hashed to 16 bytes (two
+# int64 words), after one row for the items' names; then the flag
+AGREE_ITEMS = 16
+_HASH_WORDS = 2
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -228,3 +241,67 @@ def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
     else:
         dist.broadcast(t, src)
     return t
+
+
+def _item_bytes(value) -> bytes:
+    """The bytes an item is hashed by: an array's dtype, shape and data,
+    ``bytes`` as they are, anything else by its ``repr``."""
+    if isinstance(value, np.ndarray):
+        return (f"{value.dtype.str}{value.shape}".encode()
+                + np.ascontiguousarray(value).tobytes())
+    if isinstance(value, bytes):
+        return value
+    return repr(value).encode()
+
+
+def _hash_words(data: bytes) -> np.ndarray:
+    return np.frombuffer(hashlib.blake2b(data, digest_size=8 * _HASH_WORDS)
+                         .digest(), np.int64)
+
+
+def agree(items: dict, flag: bool = False) -> bool:
+    """Hold ``items`` ({name: value}) equal on every rank of the default
+    process group, and OR ``flag`` over the ranks.
+
+    Every rank all-gathers a fixed-size digest: a hash of the sorted item
+    names, one of each item's bytes (an array's dtype, shape and data,
+    ``bytes`` as they are, else its ``repr``) and the flag. Where any
+    digest differs from rank 0's, every rank raises the same
+    ``ValueError``, naming the ranks that differ and the items they differ
+    on; nothing is broadcast, so no rank's state is replaced by another's.
+    Returns whether any rank raised ``flag`` (the one value that may
+    differ). A collective: every rank calls it, in the same order. Outside
+    a process group it returns ``flag``. The digest is staged as the
+    backend needs it: a CPU tensor on gloo, one on the current card on
+    NCCL.
+    """
+    names = sorted(items)
+    if len(names) > AGREE_ITEMS:
+        raise ValueError(f"agree: {len(names)} items, at most {AGREE_ITEMS}")
+    if not (dist.is_available() and dist.is_initialized()):
+        return bool(flag)
+    words = np.zeros((AGREE_ITEMS + 1) * _HASH_WORDS + 1, np.int64)
+    words[:_HASH_WORDS] = _hash_words(repr(names).encode())
+    for k, name in enumerate(names, 1):
+        words[k * _HASH_WORDS:(k + 1) * _HASH_WORDS] = _hash_words(
+            _item_bytes(items[name]))
+    words[-1] = int(bool(flag))
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    mine = torch.from_numpy(words).to(device)
+    gathered = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, mine)
+    table = torch.stack(gathered).cpu().numpy()
+    digests = table[:, :-1].reshape(len(gathered), AGREE_ITEMS + 1,
+                                    _HASH_WORDS)
+    differ = (digests != digests[0]).any(axis=2)      # [ranks, rows]
+    ranks = [r for r in range(len(gathered)) if differ[r].any()]
+    if ranks:
+        if differ[:, 0].any():
+            what = "the items' names"
+        else:
+            what = ", ".join(repr(n) for k, n in enumerate(names, 1)
+                             if differ[:, k].any())
+        raise ValueError(f"agree: rank(s) {ranks} differ from rank 0 on "
+                         f"{what}")
+    return bool(table[:, -1].any())

@@ -1,9 +1,7 @@
 """Sandbox CLI — the reference's GLFW/ImGui editor as a batch tool.
 
 Counterpart of ``planeverb_tpu/sandbox/cli.py``: the same subcommands,
-arguments and output (``scale`` without the JAX CLI's projection model,
-whose constants are a TPU's: no ``--project``, ``--rate-ext`` or
-``--round-overhead-us``).
+arguments and output (``scale --project`` models the H100's constants).
 The reference sandbox (PlaneverbSandbox/src/Editor/Editor.cpp) loads .pv
 scenes, shows live acoustic parameters in dB, plots impulse responses, and
 plays processed audio. This CLI exposes the same workflows headlessly:
@@ -15,6 +13,7 @@ plays processed audio. This CLI exposes the same workflows headlessly:
   python -m planeverb_tpu_torch sweep  -o sweep.csv
   python -m planeverb_tpu_torch grid   SmallRoom
   python -m planeverb_tpu_torch scale  HugeRoom --grid-size 25 --resolution 750 --solver fused
+  python -m planeverb_tpu_torch scale  HugeRoom --grid-size 25 --resolution 750 --project
   python -m planeverb_tpu_torch scenes
 
 Scene arguments accept either a .pv file path or a built-in demo scene name.
@@ -35,6 +34,9 @@ import numpy as np
 from planeverb_tpu_torch.config import (PlaneverbConfig, PlaneverbDSPConfig,
                                         Resolution)
 from planeverb_tpu_torch.core.context import Context
+from planeverb_tpu_torch.parallel.scaling import (
+    ROUND_OVERHEAD_S, ROUND_RATE_CUPS, projected_efficiency,
+    projected_weak_efficiency)
 from planeverb_tpu_torch.scene import DEMO_SCENES, Scene, demo_scene, load_pv
 from planeverb_tpu_torch.types import PlaneverbOutput
 
@@ -436,6 +438,9 @@ def cmd_view(args) -> int:
 # the CPU positions ``scale --engine-device cpu`` sweeps (the JAX tests'
 # eight virtual devices)
 CPU_SCALE_POSITIONS = 8
+# the card counts ``scale --project`` models: the JAX CLI's, and 2 (a host
+# of two cards)
+PROJECT_COUNTS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def cmd_scale(args) -> int:
@@ -449,13 +454,27 @@ def cmd_scale(args) -> int:
     from planeverb_tpu_torch.ops import voxelize
     from planeverb_tpu_torch.parallel.scaling import measure_scaling
 
+    params = compute_grid_params(_config(args))
+    if args.project:
+        # the projected efficiency from the one-card model
+        # (parallel/scaling.py::projected_efficiency /
+        # projected_weak_efficiency), with the H100's fitted rate and
+        # overhead unless overridden: --weak holds the per-card block at
+        # this grid and grows the world with N; --overlap models the
+        # overlap split (1D meshes, the exchange beside the interior launch)
+        fn = projected_weak_efficiency if args.weak else projected_efficiency
+        rows = fn(params.nx, params.ny, PROJECT_COUNTS,
+                  rate_ext_cups=args.rate_ext * 1e9, overlap=args.overlap,
+                  round_overhead_s=args.round_overhead_us * 1e-6)
+        for row in rows:
+            print(json.dumps(row))
+        return 0
     if args.overlap and args.solver != "fused":
         # fail like the other subcommands do: a clean message, not a
         # traceback from deep inside the harness
         print("error: --overlap needs --solver fused (the round split "
               "lives in the fused rounds)", file=sys.stderr)
         return 2
-    params = compute_grid_params(_config(args))
     scene = _load_scene(args.scene)
     beta, refl = voxelize.voxelize_np(params, scene.boxes if scene else [])
     lix, liy = params.world_to_cell(*_xy(args.listener))
@@ -628,12 +647,28 @@ def main(argv=None) -> int:
     p.add_argument("--solver", choices=("wide", "fused"), default="wide",
                    help="sharded backend: the per-step wide-halo solver "
                         "(plain torch) or the fused rounds (B5/B6 kernels)")
+    p.add_argument("--project", action="store_true",
+                   help="print the projected efficiency table from the "
+                        "one-card model instead of measuring")
+    p.add_argument("--rate-ext", type=float,
+                   default=ROUND_RATE_CUPS / 1e9, dest="rate_ext",
+                   help="the round's asymptotic cell rate in G cells/s "
+                        "for --project (cells unpadded; default: "
+                        "scaling.ROUND_RATE_CUPS, fitted on an H100)")
+    p.add_argument("--round-overhead-us", type=float,
+                   default=ROUND_OVERHEAD_S * 1e6,
+                   dest="round_overhead_us",
+                   help="the round's fixed cost in us for --project (the "
+                        "fit's second parameter; default: "
+                        "scaling.ROUND_OVERHEAD_S)")
     p.add_argument("--weak", action="store_true",
                    help="weak scaling: hold the per-device block at this "
-                        "grid and grow the world with the device count")
+                        "grid and grow the world with the device count "
+                        "(the measured sweep and --project both honor it)")
     p.add_argument("--overlap", action="store_true",
-                   help="run the overlap round split (1D meshes; needs "
-                        "--solver fused)")
+                   help="the overlap round split (1D meshes): modelled "
+                        "with --project, else run in the measured sweep "
+                        "(needs --solver fused)")
     p.set_defaults(fn=cmd_scale)
 
     p = sub.add_parser("scenes", help="list built-in demo scenes")

@@ -57,9 +57,9 @@ def test_imports_without_jax():
 
 
 def test_scaling_holds_no_tpu_constant():
-    """parallel/scaling.py ports measure_scaling only: none of the JAX
-    module's projection model, whose constants are a TPU's (V5E_*, ICI_*,
-    DCN_*, ROUND_*)."""
+    """parallel/scaling.py's projection model carries the H100's own
+    constants: none of the JAX module's TPU names (V5E_*, ICI_*, DCN_*)
+    and no TPU lane padding (``_lanes``); each constant is set."""
     path = os.path.join(_ROOT, "planeverb_tpu_torch", "parallel",
                         "scaling.py")
     tree = ast.parse(open(path).read())
@@ -67,12 +67,15 @@ def test_scaling_holds_no_tpu_constant():
     names |= {n.name for n in ast.walk(tree)
               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
     bad = sorted(n for n in names
-                 if n.startswith(("V5E_", "ICI_", "DCN_", "ROUND_"))
-                 or n.startswith("projected_"))
+                 if n.startswith(("V5E_", "ICI_", "DCN_")) or n == "_lanes")
     assert not bad, bad
     from planeverb_tpu_torch.parallel import scaling
 
-    assert scaling.__all__ == ["measure_scaling"]
+    assert scaling.__all__ == ["measure_scaling", "projected_efficiency",
+                               "projected_weak_efficiency"]
+    for name in ("ROUND_RATE_CUPS", "ROUND_OVERHEAD_S", "NVLINK_GBPS",
+                 "NVLINK_LATENCY_S", "NIC_GBPS", "NIC_LATENCY_S"):
+        assert getattr(scaling, name) > 0, name
 
 
 def test_parallel_exports_the_ported_modules():

@@ -10,14 +10,16 @@ the process boundary and so do the diagonal neighbours the round kernel's
   - ``simulate_sharded_wide`` (halo 2) and ``simulate_sharded``;
   - ``simulate_sharded_fused`` through B5's plain rounds (halo 2) and B6's
     (``band_rows=4``), moments included;
-  - the overlap split on a (4, 1) mesh of the two processes.
+  - the overlap split on a (4, 1) mesh of the two processes;
+  - a ``Context`` on the 2x2 mesh, stepped once.
 
 Each worker assembles every result (each block broadcast from its owner)
 and prints SHA-256 digests of its bytes and three fingerprints (the JAX
-worker's, tests/multihost_worker.py). The parent requires the digests to
-equal those of the same passes on a single-process ``["cpu"] * 4`` mesh
-(bit for bit) and the fingerprints to lie within 1e-5 (scale-relative) of
-the JAX package's single-device ``fdtd.simulate``. This file is its own
+worker's, tests/multihost_worker.py), and a digest of the Context's
+published grids. The parent requires the digests to equal those of the
+same passes and Context on a single-process ``["cpu"] * 4`` mesh (bit for
+bit) and the fingerprints to lie within 1e-5 (scale-relative) of the JAX
+package's single-device ``fdtd.simulate``. This file is its own
 worker: ``python tests/test_torch_multihost.py <port> <rank>``.
 """
 
@@ -75,6 +77,19 @@ def _digest(fields, p) -> str:
     for name in fields._fields:
         h.update(getattr(fields, name)[..., :p.nx, :p.ny].contiguous()
                  .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _context_digest(mesh) -> str:
+    """SHA-256 of the grids a Context on ``mesh`` publishes after a step
+    (SmallRoom at 6 m and 275 Hz, the listener of the passes)."""
+    ctx = tpv.Context(tpv.PlaneverbConfig(6.0, 6.0, 275),
+                      scene=tpv.demo_scene("SmallRoom"), mesh=mesh)
+    ctx.set_listener_position(LISTENER[0], 0.0, LISTENER[1])
+    ctx.step()
+    h = hashlib.sha256()
+    for key in sorted(ctx._published.keys() - {"listener", "pressure"}):
+        h.update(np.ascontiguousarray(ctx._published[key]).tobytes())
     return h.hexdigest()
 
 
@@ -136,12 +151,10 @@ def _worker(port: str, rank: int) -> int:
         raise AssertionError("Sharded.at read another process's block")
     except ValueError:
         pass
-    try:
-        tpv.Context(tpv.PlaneverbConfig(6.0, 6.0, 275), mesh=mesh)
-        raise AssertionError("Context accepted a multi-process mesh")
-    except ValueError:
-        pass
-    print("RESULT " + json.dumps({"rank": rank, "passes": res}), flush=True)
+    # a Context steps on the multi-process mesh
+    context = _context_digest(mesh)
+    print("RESULT " + json.dumps({"rank": rank, "passes": res,
+                                  "context": context}), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -271,7 +284,9 @@ def test_two_processes_bit_equal_to_single_process():
     ref = jfdtd.simulate(p, jnp.asarray(beta), jnp.asarray(refl),
                          jnp.asarray(pulse), lix, liy)
     jax_fp = _fingerprint(np.asarray(ref.pressure))
+    context = _context_digest(grid_mesh(["cpu"] * 4, (2, 2)))
     for g in got:
+        assert g["context"] == context, g["rank"]
         assert set(g["passes"]) == set(want)
         for name, (digest, fp) in g["passes"].items():
             assert digest == want[name][0], (g["rank"], name)

@@ -255,11 +255,20 @@ def test_cli_play_device_flag_guarded(tmp_path):
 
 
 def test_cli_has_no_scale_command(capsys):
-    """scale runs the ported harness without the JAX CLI's projection
-    model (a TPU's constants): argparse refuses --project."""
-    with pytest.raises(SystemExit):
-        main(["scale", "HugeRoom", "--project"])
-    assert "unrecognized arguments: --project" in capsys.readouterr().err
+    """scale's projection model is ported with the H100's constants:
+    ``scale --project`` prints one row per modelled card count, the one
+    card at efficiency 1, without touching a card."""
+    import json
+
+    from planeverb_tpu_torch.sandbox.cli import PROJECT_COUNTS
+
+    assert main(["scale", "HugeRoom", "--project", "--grid-size", "126",
+                 "--resolution", "750"]) == 0
+    rows = [json.loads(line)
+            for line in capsys.readouterr().out.splitlines()]
+    assert [r["devices"] for r in rows] == list(PROJECT_COUNTS)
+    assert rows[0]["efficiency"] == 1.0
+    assert all(0.0 < r["efficiency"] <= 1.0 for r in rows)
 
 
 def test_engine_runs_on_the_card_unless_asked():

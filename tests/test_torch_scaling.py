@@ -7,7 +7,12 @@ package's row, backend, overlap, weak-mode and error cases
 carry the JAX harness's keys (``ROW_KEYS``). Times from these runs are
 the host's and say nothing of a card. Then ``utils/profiling.py``
 (``time_passes_stats``' keys, a ``device_trace`` written on the CPU) and
-``python -m planeverb_tpu_torch scale``.
+``python -m planeverb_tpu_torch scale``. Last, the projection model
+(``projected_efficiency`` / ``projected_weak_efficiency``) against the JAX
+module's with its constants monkeypatched, inside the test only, to the
+port's H100 values and its TPU lane padding (``_lanes``) to the port's
+unpadded cell count: the rows must come out equal; and ``scale
+--project``'s rows.
 """
 
 import json
@@ -21,7 +26,9 @@ import torch
 import oracle
 from planeverb_tpu_torch import config as tcfg
 from planeverb_tpu_torch.ops import voxelize as tvox
+from planeverb_tpu_torch.parallel import scaling
 from planeverb_tpu_torch.parallel.scaling import measure_scaling
+from planeverb_tpu_torch.sandbox.cli import PROJECT_COUNTS
 from planeverb_tpu_torch.sandbox.cli import main as cli_main
 from planeverb_tpu_torch.utils import profiling
 
@@ -141,10 +148,108 @@ def test_cli_scale_rejects_overlap_without_fused(capsys):
 @pytest.mark.parametrize("flag", [["--project"], ["--rate-ext", "50"],
                                   ["--round-overhead-us", "2"]])
 def test_cli_scale_rejects_the_projection_flags(flag):
-    """The JAX CLI's projection flags (a TPU's constants) are not
-    ported: argparse rejects them, as a subprocess sees it."""
+    """The JAX CLI's projection flags are ported with the H100's
+    defaults: ``scale --project`` with each flag, as a subprocess sees it,
+    prints the model's rows for those constants (no card needed)."""
     proc = subprocess.run(
         [sys.executable, "-m", "planeverb_tpu_torch", "scale", "SmallRoom",
-         *flag], cwd=_ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2
-    assert "unrecognized arguments" in proc.stderr
+         "--grid-size", "10", "--resolution", "500", "--project", *flag],
+        cwd=_ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    p = tcfg.compute_grid_params(tcfg.PlaneverbConfig(10.0, 10.0, 500))
+    rate = 50e9 if "--rate-ext" in flag else scaling.ROUND_RATE_CUPS
+    c = 2e-6 if "--round-overhead-us" in flag else scaling.ROUND_OVERHEAD_S
+    assert rows == json.loads(json.dumps(scaling.projected_efficiency(
+        p.nx, p.ny, PROJECT_COUNTS, rate_ext_cups=rate,
+        round_overhead_s=c)))
+
+
+# ------------------------------------------------------ the projection model
+# the JAX module's constants and the port's that take their place
+_PORT_CONSTANTS = {"V5E_ICI_GBPS": "NVLINK_GBPS", "V5E_DCN_GBPS": "NIC_GBPS",
+                   "ICI_LATENCY_S": "NVLINK_LATENCY_S",
+                   "DCN_LATENCY_S": "NIC_LATENCY_S"}
+# (function, grid or block, device counts, keyword arguments)
+PROJECTIONS = [
+    ("projected_efficiency", (192, 192), [1, 2, 4, 8], {}),
+    ("projected_efficiency", (964, 964), [1, 2, 4, 8, 16, 32, 64], {}),
+    ("projected_efficiency", (1920, 1920), [1, 8, 16, 64], {}),
+    ("projected_efficiency", (964, 964), [2, 4, 8, 16, 64],
+     {"overlap": True}),
+    ("projected_efficiency", (459, 301), [4, 8, 12, 16],
+     {"chips_per_host": 4, "halos": (2, 6, 16)}),
+    ("projected_weak_efficiency", (480, 512), [1, 16, 32, 64],
+     {"overlap": True}),
+    ("projected_weak_efficiency", (192, 192), [1, 2, 4, 8, 16], {}),
+]
+
+
+@pytest.fixture
+def jax_model(monkeypatch):
+    """The JAX projection model with the port's constants and cell count,
+    patched for this test only."""
+    from planeverb_tpu.parallel import scaling as jscaling
+
+    for jname, pname in _PORT_CONSTANTS.items():
+        monkeypatch.setattr(jscaling, jname, getattr(scaling, pname))
+    monkeypatch.setattr(jscaling, "_lanes", lambda n: n)
+    return jscaling
+
+
+@pytest.mark.parametrize("fn,grid,counts,kw", PROJECTIONS,
+                         ids=[f"{c[0][10:]}-{c[1][0]}x{c[1][1]}-{i}"
+                              for i, c in enumerate(PROJECTIONS)])
+def test_projection_rows_equal_the_jax_model(jax_model, fn, grid, counts,
+                                             kw):
+    kw = dict(kw, round_overhead_s=scaling.ROUND_OVERHEAD_S)
+    port = getattr(scaling, fn)(*grid, counts, scaling.ROUND_RATE_CUPS, **kw)
+    want = getattr(jax_model, fn)(*grid, counts, scaling.ROUND_RATE_CUPS,
+                                  **kw)
+    assert port == want and port
+    # the defaults are the H100 fit
+    assert getattr(scaling, fn)(*grid, counts, **kw) == port
+
+
+def test_projection_model_shape():
+    """The JAX model's structural checks on the port's constants: one card
+    is the reference, strong efficiency decays with N, rows inside a host
+    pay NVLink and cross-host rows the NIC, the split's rows carry its
+    derivation, weak rows grow the world."""
+    rows = scaling.projected_efficiency(964, 964, [1, 2, 4, 8, 16, 64])
+    by_n = {r["devices"]: r for r in rows}
+    assert by_n[1]["efficiency"] == 1.0 and by_n[1]["mesh"] == [1, 1]
+    assert by_n[1]["t_comm_round_us"] == 0.0
+    effs = [by_n[n]["efficiency"] for n in sorted(by_n)]
+    assert effs == sorted(effs, reverse=True)
+    assert [by_n[n]["hosts"] for n in (8, 16, 64)] == [1, 2, 8]
+    tx, _ = scaling._axis_comm(2, 1, 16, 482, 964, 8)
+    slab = 3 * 16 * 964 * 4
+    assert tx == slab / (scaling.NVLINK_GBPS * 1e9) + scaling.NVLINK_LATENCY_S
+    tx, _ = scaling._axis_comm(16, 1, 16, 61, 964, 8)
+    assert tx == slab / (scaling.NIC_GBPS * 1e9) + scaling.NIC_LATENCY_S
+    split = scaling.projected_efficiency(964, 964, [4, 8], overlap=True)
+    for r in split:
+        assert r["mesh"][1] == 1 and "comm_hidden" in r
+        if r["comm_hidden"]:
+            assert r["t_comm_round_us"] == 0.0
+    weak = scaling.projected_weak_efficiency(192, 192, [1, 4])
+    assert weak[0]["efficiency"] == 1.0
+    assert weak[1]["global_grid"][0] * weak[1]["global_grid"][1] \
+        == 4 * 192 * 192
+
+
+def test_cli_scale_project_rows(capsys):
+    """``scale --project`` (and ``--weak --overlap``) print the model's
+    rows for PROJECT_COUNTS with the H100's constants."""
+    p = tcfg.compute_grid_params(tcfg.PlaneverbConfig(25.0, 25.0, 750))
+    for flags, fn in (([], scaling.projected_efficiency),
+                      (["--weak", "--overlap"],
+                       scaling.projected_weak_efficiency)):
+        assert cli_main(["scale", "HugeRoom", "--project", "--grid-size",
+                         "25", "--resolution", "750", *flags]) == 0
+        rows = [json.loads(line)
+                for line in capsys.readouterr().out.splitlines()]
+        want = fn(p.nx, p.ny, PROJECT_COUNTS, overlap=bool(flags))
+        assert rows == json.loads(json.dumps(want))
+        assert [r["devices"] for r in rows] == list(PROJECT_COUNTS)
