@@ -94,7 +94,8 @@ from planeverb_tpu_torch.parallel.solver import shard_fields
 from planeverb_tpu_torch.parallel.solver_fused import pipeline_sharded
 from planeverb_tpu_torch.scene import Scene
 from planeverb_tpu_torch.types import PlaneverbOutput, invalid_output, vec2
-from planeverb_tpu_torch.utils.profiling import StageTimer
+from planeverb_tpu_torch.utils.profiling import (StageTimer, count, span,
+                                                 throughput)
 
 __all__ = ["Context", "LAZY_DOA_CELLS"]
 
@@ -106,12 +107,13 @@ def _pack(out) -> torch.Tensor:
     source_directivity xy, delay_samples — is load-bearing: it is the JAX
     engine's layout (and its server/C-ABI "rows" wire format).
     """
-    return torch.cat([
-        out.occlusion[..., None], out.wet_gain[..., None],
-        out.rt60[..., None], out.lowpass[..., None],
-        out.direction, out.source_directivity,
-        out.delay_samples[..., None],
-    ], dim=-1)
+    with span("pack"):
+        return torch.cat([
+            out.occlusion[..., None], out.wet_gain[..., None],
+            out.rt60[..., None], out.lowpass[..., None],
+            out.direction, out.source_directivity,
+            out.delay_samples[..., None],
+        ], dim=-1)
 
 
 def _grids_dict(grids) -> dict:
@@ -271,7 +273,7 @@ class Context:
         self._coverage_checked = False   # first-step check done?
 
         # calibration (FreeGrid analog) — one empty-grid sim at init
-        with self.timer.stage("calibration"):
+        with self.timer.span("calibration"):
             self.efree = calibrate_free_field(self.params, self.device)
 
         self._fields_version = -1
@@ -405,7 +407,7 @@ class Context:
         version, boxes = snapshot
         if version == self._fields_version:
             return
-        with self.timer.stage("voxelize"):
+        with self.timer.span("fields"):
             if boxes:
                 arr = torch.from_numpy(voxelize.boxes_to_array(boxes))
                 beta, refl = voxelize.voxelize(self.params,
@@ -441,7 +443,7 @@ class Context:
         collective, and it raises the same ``ValueError`` on every rank
         whose inputs differ from rank 0's.
         """
-        with self._step_lock:
+        with self._step_lock, self.timer.step(self._iteration + 1):
             self._step_locked()
 
     def _step_locked(self) -> None:
@@ -460,22 +462,26 @@ class Context:
             snapshot, wanted = self._inputs()
         self._sync_fields(snapshot)
         views = [(lx, lz) for lx, _, lz in listeners]
-        with self.timer.stage("simulate+analyze"):
+        with self.timer.span("simulate+analyze"):
             pressure, packed = self._pass(views, multi is not None)
             # the single host copy: the packed grids, or on cells publish
             # only the emitters' rows, gathered on the device (with a
             # leading [B] axis for several views). It waits for the device,
-            # so this stage times the whole pass, not its enqueue
-            if wanted is None:
-                fetched = packed.cpu().numpy()
-            elif wanted:
-                idx = torch.tensor(wanted, device=packed.device)
-                fetched = packed[..., idx[:, 0], idx[:, 1], :].cpu().numpy()
-            else:
-                fetched = np.zeros((*packed.shape[:-3], 0, 9), np.float32)
-                if packed.is_cuda:
-                    torch.cuda.synchronize(packed.device)
-        with self.timer.stage("publish"):
+            # so this span times the whole pass, not its enqueue
+            with span("fetch"):
+                if wanted is None:
+                    fetched = packed.cpu().numpy()
+                elif wanted:
+                    idx = torch.tensor(wanted, device=packed.device)
+                    fetched = packed[..., idx[:, 0], idx[:, 1], :]
+                    fetched = fetched.cpu().numpy()
+                else:
+                    fetched = np.zeros((*packed.shape[:-3], 0, 9),
+                                       np.float32)
+                    if packed.is_cuda:
+                        torch.cuda.synchronize(packed.device)
+                count("fetch.bytes", fetched.nbytes)
+        with self.timer.span("publish"):
             published = {"listener": views[0]}
             if multi is None:
                 # the recording stays on the device, exactly [T, nx, ny]; on
@@ -490,10 +496,10 @@ class Context:
                 published["cells"] = {cell: fetched[..., i, :]
                                       for i, cell in enumerate(wanted)}
                 published["packed_device"] = packed   # [(B,) gx, gy, 9]
-        self._published = published            # single atomic assignment
-        with self._iter_cond:
-            self._iteration += 1
-            self._iter_cond.notify_all()
+            self._published = published        # single atomic assignment
+            with self._iter_cond:
+                self._iteration += 1
+                self._iter_cond.notify_all()
 
     def _inputs(self):
         """This step's host inputs besides the listeners: the geometry
@@ -745,12 +751,13 @@ class Context:
 
     # --------------------------------------------------------------- admin
     def profile_summary(self) -> dict:
+        """This Context's spans on the host clock ({name: mean_s, last_s,
+        count, self_mean_s}), its counters ({name: total, last, count}) and
+        the pass's ``throughput``. Device time is in a profiler's trace."""
         summary = self.timer.stats.summary()
         pipe = summary.get("simulate+analyze")
         if pipe:
-            from planeverb_tpu_torch.utils.profiling import throughput
-
-            # the stage times the whole step: B passes with several
+            # the span times the whole step: B passes with several
             # listeners, so a listener's share is mean / B
             b = len(self.get_listener_positions())
             summary["throughput"] = throughput(self.params,

@@ -15,6 +15,7 @@ import torch
 
 from planeverb_tpu_torch.config import BoundaryType, GridParams
 from planeverb_tpu_torch.ops.fdtd import admittance, coefficients_from_fields
+from planeverb_tpu_torch.utils.profiling import spanned
 
 # 10/ln(10) rounded to f32, the scale of y_db = 10 log10(EDC) from ln
 LOG10_SCALE = np.float32(10.0 / np.log(10.0))
@@ -91,6 +92,9 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+# a span of its own (its count is the folds a step), not forwarded to a
+# trace: its kernels stay the solver's
+@spanned("fold", forward=False)
 def coefficients(params: GridParams, beta, refl):
     """The six folded stencil coefficient planes of the whole field (the
     edge ABC at the global edge)."""

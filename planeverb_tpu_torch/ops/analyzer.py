@@ -27,6 +27,7 @@ import torch
 
 from planeverb_tpu_torch.config import GridParams
 from planeverb_tpu_torch.ops.doa import encode_directions
+from planeverb_tpu_torch.utils.profiling import span, spanned
 
 __all__ = ["AnalyzerResults", "Moments", "analyze", "analyze_moments",
            "moments_from_pressure", "free_field_normalizer"]
@@ -146,6 +147,7 @@ def moments_from_pressure(params: GridParams, pressure, onset) -> Moments:
     return Moments(e_dry=e_dry, e_wet=e_wet, e_total=e_total, s0=s0, s1=s1)
 
 
+@spanned("analysis")
 def analyze_moments(params: GridParams, moments: Moments, onset,
                     flux_x, flux_y, efree: float,
                     listener_x: float, listener_y: float,
@@ -226,8 +228,10 @@ def analyze_moments(params: GridParams, moments: Moments, onset,
 
     # -- pass 2: direction via parallel delay-field descent (ops/doa.py)
     if compute_directions:
-        direction = encode_directions(params, occlusion, delay,
-                                      float(lwx), float(lwy))
+        # not forwarded to a trace: its kernels stay the analysis's
+        with span("doa", forward=False):
+            direction = encode_directions(params, occlusion, delay,
+                                          float(lwx), float(lwy))
     else:
         direction = torch.zeros((gx, gy, 2), dtype=torch.float32, device=dev)
 

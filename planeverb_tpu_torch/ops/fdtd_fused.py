@@ -63,6 +63,7 @@ from planeverb_tpu_torch.ops._common import (check_field, coefficients,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
+from planeverb_tpu_torch.utils.profiling import spanned
 
 __all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
            "fdtd_sim_reference", "fdtd_sim_per_step", "fdtd_sim_batch",
@@ -203,6 +204,7 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
 
 
 @counted
+@spanned("solver")
 def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int,
              state_dtype=torch.float32):
     """One full simulation pass with streaming onset/flux/energies (B1).
@@ -232,6 +234,7 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int,
 
 
 @counted
+@spanned("solver")
 def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
                    state_dtype=torch.float32):
     """B1 for B listeners in one pass (the TPU kernel's batched mode): one
@@ -428,6 +431,7 @@ def _split(s, onsets):
 
 
 @counted
+@spanned("solver")
 def rt60_moments(params: GridParams, rec, onset):
     """RT60 regression moments (s0, s1) of :class:`analyzer.Moments` from
     the [T, X, Y] recording (float32 or bf16) and the [X, Y] onset: the
@@ -443,6 +447,7 @@ def rt60_moments(params: GridParams, rec, onset):
 
 
 @counted
+@spanned("solver")
 def rt60_moments_batch(params: GridParams, rec, onset):
     """B2 for B listeners in one launch: the [B, T, X, Y] recordings
     (float32 or bf16) and [B, X, Y] onsets -> (s0, s1), each [B, X, Y].
@@ -555,6 +560,7 @@ def simulate_auto(params: GridParams, beta, refl, pulse,
     return res
 
 
+@spanned("route")
 def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
                   efree: float, listener_x: float, listener_z: float,
                   compute_directions: bool = True,
@@ -578,6 +584,7 @@ def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
     return res, out
 
 
+@spanned("route")
 def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
                         efree: float, lpos, compute_directions: bool = True,
                         state_dtype=torch.float32) -> AnalyzerResults:
@@ -602,8 +609,10 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     outs = []
     if _use_tiled(params):
         for (cix, ciy), (lx, lz) in zip(cells, lpos):
-            res, out = pipeline_auto(params, beta, refl, pulse, cix, ciy,
-                                     efree, lx, lz, compute_directions)
+            # inside this call's route span already
+            res, out = pipeline_auto.__wrapped__(
+                params, beta, refl, pulse, cix, ciy, efree, lx, lz,
+                compute_directions)
             del res   # this listener's recording goes before the next pass
             outs.append(out)
     else:

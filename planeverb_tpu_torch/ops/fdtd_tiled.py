@@ -43,6 +43,7 @@ from planeverb_tpu_torch.ops._common import (barrier_words, check_field,
 from planeverb_tpu_torch.ops.analyzer import Moments
 from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
                                           fdtd_step_folded)
+from planeverb_tpu_torch.utils.profiling import spanned
 
 __all__ = ["TILES", "HALO", "CHUNK", "RUN", "MAX_THREADS", "block_shape",
            "pick_tile", "fdtd_sim_tiled", "fdtd_sim_tiled_probe",
@@ -221,6 +222,7 @@ def _launch_fdtd_sim_tiled(params: GridParams, beta, refl, pulse,
 
 
 @counted
+@spanned("solver")
 def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
                    liy: int, tile=None, halo=None):
     """One simulation pass in rounds of ``halo`` steps over tiles (B3).
@@ -301,6 +303,7 @@ def rt60_moments_tiled_reference(params: GridParams, rec, onset,
 
 
 @counted
+@spanned("solver")
 def rt60_moments_tiled(params: GridParams, rec, onset, chunk=None):
     """RT60 regression moments (s0, s1) from the [T, X, Y] recording and
     the [X, Y] onset (the whole field, or one shard of it), walked in

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from planeverb_tpu_torch.config import GridParams
+from planeverb_tpu_torch.utils.profiling import spanned
 
 __all__ = ["base_fields", "voxelize", "voxelize_np", "boxes_to_array"]
 
@@ -45,6 +46,7 @@ def boxes_to_array(boxes, max_boxes: int | None = None) -> np.ndarray:
     return out
 
 
+@spanned("voxelize")
 def voxelize(params: GridParams, boxes: torch.Tensor):
     """Rasterize a [B, 5] float32 box tensor into (beta, reflection)
     [nx, ny] fields on the boxes' device.

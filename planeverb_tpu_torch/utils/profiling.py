@@ -1,29 +1,55 @@
-"""Per-stage timing, pass timing on the card, traces, and throughput
-accounting (ScopedTimer/PROFILE_* analog).
+"""The program's spans and counters, pass timing on the card, traces, and
+throughput accounting (ScopedTimer/PROFILE_* analog).
 
 The reference gates RAII microsecond timers behind compile-time flags
-(PvDefinitions.h:31-58, Util/ScopedTimer.h). Here timing is
-always collected (cheap) and surfaced as a structured dict; cell-updates/s
-and recording-bandwidth metrics derive from the grid parameters.
+(PvDefinitions.h:31-58, Util/ScopedTimer.h). Here the spans are always
+recorded (a few microseconds each) and surfaced as a structured dict.
 
-:class:`StageTimer` reads the host clock: on a CUDA device a stage that
+:class:`span` is the one recorder: a named interval on the host clock
+(``perf_counter_ns``). A span is host time: on a CUDA device a span that
 does not end in a host copy or ``torch.cuda.synchronize()`` times the
-enqueue, not the device work. :func:`time_passes_stats` times a pass on
-the device it runs on (CUDA events on one card), and :func:`device_trace`
-records a ``torch.profiler`` trace with the card's kernels.
+enqueue, not the device work. Device time lives in a ``torch.profiler``
+trace, and while a profiler records, every forwarded span also opens
+``record_function("pvb." + name)``, so the trace holds the program's spans
+on its own clock and each kernel launch falls inside the span that made
+it. Each span adds its time and its self time (its duration less its child
+spans') to the :class:`Stats` it was given or its parent's (a Context's,
+read by ``Context.profile_summary()``), and to the :class:`StepRecord` of
+the step it runs in: :meth:`StageTimer.step` opens one per
+``Context.step``, and :func:`steps` returns the last :data:`STEPS_KEPT` of
+the process. :func:`count` adds to a step's counters. The stack of open
+spans is per thread.
+
+:func:`time_passes_stats` times a pass on the device it runs on (CUDA
+events on one card), and :func:`device_trace` records a ``torch.profiler``
+trace with the card's kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import statistics
+import threading
 import time
 
 import torch
+from torch.autograd.profiler import record_function
 
-__all__ = ["StageTimer", "Stats", "throughput", "time_passes",
+__all__ = ["STEPS_KEPT", "span", "spanned", "count", "steps", "StepRecord",
+           "StageTimer", "Stats", "throughput", "time_passes",
            "time_passes_stats", "device_trace"]
+
+# the forwarded spans' prefix in a profiler trace
+PREFIX = "pvb."
+# the steps :func:`steps` keeps, across every Context of the process
+STEPS_KEPT = 4096
+_STEPS: collections.deque = collections.deque(maxlen=STEPS_KEPT)
+# true while a torch profiler (torch.profiler or torch.autograd.profiler)
+# records: checked once a span, at about 0.2 us
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 def _timing_devices(devices) -> list[torch.device]:
@@ -102,39 +128,189 @@ def time_passes(fn, n: int = 10, reps: int = 3, devices=None) -> float:
     return time_passes_stats(fn, n, reps, devices)["median_s"]
 
 
-class Stats:
-    """Rolling per-stage wall-clock stats."""
+class StepRecord:
+    """One step of a Context: its ``iteration`` (the number the step
+    publishes, shared by every span in it), whether a torch profiler was
+    recording in it (``profiled``), its ``spans`` as (name, parent name or
+    None, start ns, duration ns, self ns) in the order they ended, and its
+    ``counters`` {name: total}."""
+
+    __slots__ = ("iteration", "profiled", "spans", "counters")
+
+    def __init__(self, iteration: int):
+        self.iteration = iteration
+        self.profiled = False
+        self.spans: list = []
+        self.counters: dict = {}
+
+    def span_ns(self, name: str) -> int:
+        """Host ns in spans ``name`` (they never nest in themselves)."""
+        return sum(s[3] for s in self.spans if s[0] == name)
+
+    def self_ns(self, name: str) -> int:
+        """Host ns of spans ``name`` outside their child spans."""
+        return sum(s[4] for s in self.spans if s[0] == name)
+
+    def span_count(self, name: str) -> int:
+        return sum(1 for s in self.spans if s[0] == name)
+
+
+class _Open(threading.local):
+    """This thread's open spans, innermost last."""
 
     def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self.last: dict[str, float] = {}
+        self.stack: list = []
 
-    def record(self, stage: str, seconds: float) -> None:
-        self.totals[stage] = self.totals.get(stage, 0.0) + seconds
-        self.counts[stage] = self.counts.get(stage, 0) + 1
-        self.last[stage] = seconds
 
-    def mean(self, stage: str) -> float:
-        c = self.counts.get(stage, 0)
-        return self.totals.get(stage, 0.0) / c if c else 0.0
+_OPEN = _Open()
+
+
+class span:
+    """``with span(name): ...``: a span of host time named ``name``.
+
+    ``stats``: the :class:`Stats` it adds to (default: its parent's; none
+    outside every span). ``forward``: open ``record_function("pvb." +
+    name)`` while a torch profiler records (a span that is not forwarded
+    leaves its time, and its kernels, to the innermost forwarded span
+    around it in a trace). ``record``: a fresh :class:`StepRecord` makes
+    this span a step's root, appended to :func:`steps` when it ends without
+    an error; any other span adds itself to its parent's record.
+    """
+
+    __slots__ = ("name", "stats", "forward", "record", "root", "parent",
+                 "child", "rf", "t0")
+
+    def __init__(self, name: str, stats: "Stats | None" = None,
+                 forward: bool = True, record: StepRecord | None = None):
+        self.name = name
+        self.stats = stats
+        self.forward = forward
+        self.record = record
+        self.root = record is not None
+
+    def __enter__(self):
+        stack = _OPEN.stack
+        parent = stack[-1] if stack else None
+        if parent is not None:
+            if self.stats is None:
+                self.stats = parent.stats
+            if self.record is None:
+                self.record = parent.record
+        self.parent = parent
+        self.child = 0
+        self.rf = None
+        if _profiler_enabled():
+            if self.record is not None:
+                self.record.profiled = True
+            if self.forward:
+                self.rf = record_function(PREFIX + self.name)
+                self.rf.__enter__()
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter_ns()
+        _OPEN.stack.pop()
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        dur = t1 - self.t0
+        own = dur - self.child
+        parent = self.parent
+        if parent is not None:
+            parent.child += dur
+        if self.stats is not None:
+            self.stats.add(self.name, dur, own)
+        rec = self.record
+        if rec is not None:
+            rec.spans.append((self.name, None if self.root else parent.name,
+                              self.t0, dur, own))
+            if self.root and exc_type is None:
+                _STEPS.append(rec)
+        return False
+
+
+def spanned(name: str, forward: bool = True):
+    """Decorator: every call of the function runs inside ``span(name,
+    forward=forward)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name, forward=forward):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the innermost open span's step and
+    Stats (nothing outside every span)."""
+    stack = _OPEN.stack
+    if not stack:
+        return
+    top = stack[-1]
+    if top.record is not None:
+        top.record.counters[name] = top.record.counters.get(name, 0) + n
+    if top.stats is not None:
+        top.stats.count(name, n)
+
+
+def steps() -> list:
+    """The last :data:`STEPS_KEPT` :class:`StepRecord` of the process, the
+    oldest first."""
+    return list(_STEPS)
+
+
+class Stats:
+    """Rolling per-span host-clock stats and counter totals."""
+
+    def __init__(self):
+        # name -> [count, total ns, last ns, self ns]
+        self.spans: dict[str, list] = {}
+        # name -> [count, total, last]
+        self.counters: dict[str, list] = {}
+
+    def add(self, name: str, ns: int, self_ns: int) -> None:
+        e = self.spans.get(name)
+        if e is None:
+            e = self.spans[name] = [0, 0, 0, 0]
+        e[0] += 1
+        e[1] += ns
+        e[2] = ns
+        e[3] += self_ns
+
+    def count(self, name: str, n: int) -> None:
+        e = self.counters.get(name)
+        if e is None:
+            e = self.counters[name] = [0, 0, 0]
+        e[0] += 1
+        e[1] += n
+        e[2] = n
 
     def summary(self) -> dict:
-        return {s: {"mean_s": self.mean(s), "last_s": self.last[s],
-                    "count": self.counts[s]} for s in self.totals}
+        """{span: {mean_s, last_s, count, self_mean_s}} and {counter:
+        {total, last, count}}."""
+        out = {name: {"mean_s": total * 1e-9 / c, "last_s": last * 1e-9,
+                      "count": c, "self_mean_s": own * 1e-9 / c}
+               for name, (c, total, last, own) in list(self.spans.items())}
+        out.update({name: {"total": total, "last": last, "count": c}
+                    for name, (c, total, last)
+                    in list(self.counters.items())})
+        return out
 
 
 class StageTimer:
+    """A Context's spans, fed into its :class:`Stats`."""
+
     def __init__(self, stats: Stats | None = None):
         self.stats = stats or Stats()
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stats.record(name, time.perf_counter() - t0)
+    def span(self, name: str) -> span:
+        return span(name, self.stats)
+
+    def step(self, iteration: int) -> span:
+        """The root span ``step`` of one step, publishing ``iteration``."""
+        return span("step", self.stats, record=StepRecord(iteration))
 
 
 def throughput(params, seconds: float) -> dict:
