@@ -14,6 +14,22 @@ every cell or emitter compared:
 - ``recording_gap`` (one view only): the last refresh's published recording,
   the largest |difference| over the reference's largest |sample|.
 
+In a cell with an audio callback (``drive.AudioPump``), over every block of
+the window:
+
+- ``audio_inputs_gap``: the blocks in which the DSP was not fed what it was
+  due: a voice without a row, a voice's row equal to that emitter's row in
+  none of the refreshes that could be current while the block read them
+  (from the last refresh that had ended when the block started to the last
+  that had started when it ended), or a clip read from another offset than
+  the voices' own count gives (exact: the limit is 0). A block whose rows
+  come from two of those refreshes is sound: ``Context.sync_dsp`` reads the
+  published snapshot once a voice, and the engine may publish between two
+  voices. Such blocks are counted apart (:func:`audio_inputs`, ``torn``);
+- ``audio_gap``: the widest max |program - reference| of a block's mix over
+  the reference's peak over the window, the reference being
+  ``reference_dsp.replay`` on the rows the DSP was fed.
+
 A parameter's gap is relative to the reference's value, floored at
 :data:`FLOOR`, for the gains, RT60, lowpass and onset delay, and absolute for
 the unit vectors (direction and source directivity); equal values (the
@@ -128,3 +144,49 @@ def judge(numbers: list[dict], limits: dict) -> tuple[dict, list]:
     failed = [k for k, v in worst.items()
               if k not in limits or not v <= limits[k]]
     return worst, failed
+
+
+def audio_inputs(rows, fed, offsets, block_start, block_end, starts, ends,
+                 refresh_rows, lengths, frames: int) -> dict:
+    """Each block's inputs against the refresh loop's rows.
+
+    rows [B, V, 8] and fed [B, V] what the DSP got, offsets [B, V] the clip
+    offsets the voices read from, block_start / block_end [B] and starts /
+    ends [R] (host clock, every refresh in order, warm-up included),
+    refresh_rows [R, V, 8], lengths [V] the clips' frames. Returns ``gap``
+    and ``torn`` [B] (see the module's ``audio_inputs_gap``) and ``rows``
+    [B, V, 8]: the rows fed, and the row of the last refresh ended before
+    the block where a voice got none (what the reference replays)."""
+    import bisect
+
+    blocks, voices = fed.shape
+    got = np.ascontiguousarray(rows, np.float32).view(np.uint32)
+    have = np.ascontiguousarray(refresh_rows, np.float32).view(np.uint32)
+    want_off = (np.arange(blocks)[:, None] * frames) % np.asarray(lengths)
+    gap = ~fed.all(1) | (np.asarray(offsets) != want_off).any(1)
+    torn = np.zeros(blocks, bool)
+    out = np.array(rows, np.float32)
+    for b in range(blocks):
+        first = max(bisect.bisect_right(ends, block_start[b]) - 1, 0)
+        last = max(bisect.bisect_right(starts, block_end[b]) - 1, first)
+        eq = (have[first:last + 1] == got[b][None]).all(-1)     # [k, V]
+        gap[b] |= not (eq.any(0) | ~fed[b]).all()
+        torn[b] = eq.any(0).all() and not eq.all(1).any()
+        out[b, ~fed[b]] = refresh_rows[first][~fed[b]]
+    return {"gap": gap, "torn": torn, "rows": out}
+
+
+def audio_gap(got, want) -> np.ndarray:
+    """[B]: each block's max |got - want| over the peak |want| of the whole
+    window, mixes [B, frames, 2]."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return np.full(len(want), NONFINITE)
+    peak = float(np.abs(want).max()) if want.size else 0.0
+    with np.errstate(invalid="ignore"):
+        d = np.abs(got - want).reshape(len(want), -1).max(1)
+    d = np.where(np.isfinite(d), d, np.inf)
+    if peak > 0:
+        return np.minimum(d / peak, NONFINITE)
+    return np.where(d == 0, 0.0, NONFINITE)

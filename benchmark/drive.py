@@ -13,16 +13,27 @@ the port's public API:
 The loop is closed: one client runs refresh after refresh. A refresh is
 timed on the host clock from step 1 until step 4 returns; ``step()`` ends in
 its host copy, so the device's work is inside that time.
+
+Where the traffic has ``audio``, an audio callback runs beside the loop on a
+thread of its own (:class:`AudioPump`), as a game's audio thread does beside
+the engine's background loop: deadline-paced blocks through the port's audio
+manager, its native DSP and reverbs. The refresh loop is then an
+:class:`AudioProgram`, which publishes its listener for the callback and
+keeps every refresh's rows for the check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import threading
 import time
 
 import numpy as np
 import torch
+
+from benchmark import check
 
 # refreshes before the window: the first builds the kernels and fills the
 # allocator's cache, the rest run every shape the window runs
@@ -36,6 +47,12 @@ CHECKED = 3
 PREPARED_PER_S = 400
 # the seed's stream for the choice of the refreshes checked
 _CHECK_STREAM = 99
+# blocks the audio pump renders on a throwaway DSP in set-up
+WARM_BLOCKS = 8
+# what the harness emits its voices with: forward, volume (dB), pattern
+VOICE_FORWARD = (1.0, 0.0, 0.0)
+VOICE_DB = 0.0
+VOICE_PATTERN = 0
 
 
 @dataclasses.dataclass
@@ -52,6 +69,8 @@ class Window:
     memory_peak: int
     samples: list
     main_thread_cpu_s: float
+    # host clock at the end of the last traced refresh (None: no profiler)
+    traced_until: float | None = None
 
 
 class Program:
@@ -122,6 +141,233 @@ class Program:
                 "beta": self.ctx._beta, "refl": self.ctx._refl}
 
 
+class AudioProgram(Program):
+    """The Program of a traffic with ``audio``: before each refresh it
+    publishes its listener for the pump, as one tuple (x, z, forward x,
+    forward z; forward along the walk's last step), and it keeps every
+    refresh's start, end and the playing emitters' rows (warm-up
+    included), for the check."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.voices = int(self.traffic.audio["voices"])
+        for e, (x, z) in zip(self.eids[:self.voices], self.traffic.emitters):
+            self.ctx.emissions.update(e, x, self.traffic.height, z,
+                                      forward=VOICE_FORWARD,
+                                      volume_db=VOICE_DB,
+                                      pattern=VOICE_PATTERN)
+        x, z = self.traffic.listeners(0)[0]
+        self.listener = (x, z, 1.0, 0.0)
+        self.starts: list = []
+        self.ends: list = []
+        self.rows: list = []
+
+    def refresh(self, listeners, door) -> list:
+        x, z = listeners[0]
+        px, pz, fx, fz = self.listener
+        step = math.hypot(x - px, z - pz)
+        if step > 0.0:
+            fx, fz = (x - px) / step, (z - pz) / step
+        self.listener = (x, z, fx, fz)
+        t0 = time.perf_counter()
+        outs = super().refresh(listeners, door)
+        t1 = time.perf_counter()
+        self.starts.append(t0)
+        self.ends.append(t1)
+        self.rows.append(np.stack([check.output_row(o) for o in
+                                   outs[0][:self.voices]]))
+        return outs
+
+
+class RecordingDSP:
+    """A thin proxy around the pump's DSP context: it keeps what each block
+    fed the DSP (the listener transform, each voice's parameter row) into
+    arrays made in set-up, and passes every call on unchanged. ``block`` is
+    the block being fed."""
+
+    def __init__(self, dsp, slots: dict, blocks: int):
+        self._dsp = dsp
+        self._slots = slots                       # eid -> voice
+        self.block = 0
+        self.listener = np.zeros((blocks, 6), np.float32)
+        self.rows = np.zeros((blocks, len(slots), 8), np.float32)
+        self.fed = np.zeros((blocks, len(slots)), bool)
+        self.update_emitter = dsp.update_emitter
+        self.set_emitter_directivity_pattern = \
+            dsp.set_emitter_directivity_pattern
+        self.remove_emitter = dsp.remove_emitter
+        self.get_output = dsp.get_output
+
+    def set_listener_transform(self, position, forward) -> None:
+        self.listener[self.block] = (*position, *forward)
+        self._dsp.set_listener_transform(position, forward)
+
+    def submit_source(self, eid, dsp_input, audio) -> None:
+        v = self._slots.get(eid)
+        if v is not None:
+            self.rows[self.block, v] = check.output_row(dsp_input)
+            self.fed[self.block, v] = True
+        self._dsp.submit_source(eid, dsp_input, audio)
+
+
+def _noop(*a, **k) -> None:
+    return None
+
+
+def proxy_ms(eids, row, blocks: int = 100) -> float:
+    """The proxy's own cost a block, ms: a block's calls (the listener, one
+    submission a voice) through a :class:`RecordingDSP` around a DSP that
+    does nothing, less the same calls made on that DSP directly."""
+    import types
+
+    null = types.SimpleNamespace(
+        set_listener_transform=_noop, submit_source=_noop,
+        update_emitter=_noop, set_emitter_directivity_pattern=_noop,
+        remove_emitter=_noop, get_output=_noop)
+    proxy = RecordingDSP(null, {e: v for v, e in enumerate(eids)}, blocks)
+
+    def run(dsp) -> float:
+        t0 = time.perf_counter()
+        for b in range(blocks):
+            proxy.block = b
+            dsp.set_listener_transform((0.0, 0.0, 0.0), (1.0, 0.0, 0.0))
+            for e in eids:
+                dsp.submit_source(e, row, None)
+        return time.perf_counter() - t0
+
+    direct = run(null)
+    return (run(proxy) - direct) * 1e3 / blocks
+
+
+def _native(audio: dict):
+    """The native renderer: ``NativeDSPContext`` and one ``NativeReverb``
+    a wet bus, the port's defaults for a real-time callback."""
+    from planeverb_tpu_torch import PlaneverbDSPConfig
+    from planeverb_tpu_torch.native import NativeDSPContext, NativeReverb
+
+    cfg = PlaneverbDSPConfig(
+        max_callback_length=int(audio["frames"]),
+        dsp_smoothing_factor=audio["smoothing"],
+        sampling_rate=int(audio["rate_hz"]),
+        use_spatialization=bool(audio["spatialization"]),
+        wet_gain_ratio=float(audio["wet_gain_ratio"]))
+    return (NativeDSPContext(cfg),
+            [NativeReverb(rt, int(audio["rate_hz"]))
+             for rt in audio["reverb_rt60_s"]])
+
+
+# the renderers a traffic's ``audio.renderer`` names
+RENDERERS = {"native": _native}
+
+
+@dataclasses.dataclass
+class AudioRecord:
+    """What the pump's window gives, a row a block: its due, start and end
+    (s on the host clock), the clip offsets each voice read from, and the
+    mix it returned. What it fed the DSP is in the proxy."""
+    due: np.ndarray
+    start: np.ndarray
+    end: np.ndarray
+    offsets: np.ndarray
+    mix: np.ndarray
+
+
+class AudioPump:
+    """The audio callback beside the refresh loop, built in set-up: the
+    renderer of the traffic's ``audio``, the voices' clips looping, a few
+    warm blocks on a throwaway renderer, and a thread that waits for the
+    window. In the window, block i is due at the window's open plus i
+    blocks of audio; the thread sleeps until then (a late block starts at
+    once and none is skipped, as ``RealtimePlayer.run`` paces), sets the
+    DSP's listener from the refresh loop's, and runs
+    ``AudioSourceManager.process_block``. It renders the blocks due before
+    the window's end, then ends."""
+
+    def __init__(self, prog: AudioProgram, seconds: float):
+        from planeverb_tpu_torch.native import load_library
+        from planeverb_tpu_torch.sandbox.audio_manager import \
+            AudioSourceManager
+
+        audio = prog.traffic.audio
+        self.prog = prog
+        self.frames = int(audio["frames"])
+        self.period = self.frames / int(audio["rate_hz"])
+        self.blocks = int(math.ceil(seconds / self.period - 1e-9))
+        voices = prog.voices
+        eids = prog.eids[:voices]
+        clips = prog.traffic.clips
+        load_library()
+        make = RENDERERS[audio["renderer"]]
+        # first-call costs (the library, the renderer's and the clips'
+        # first blocks) fall on a throwaway renderer, in set-up
+        dsp, revs = make(audio)
+        warm = AudioSourceManager(prog.ctx, dsp, revs)
+        for e, clip in zip(eids, clips):
+            warm.play(e, clip, loop=True)
+        for _ in range(WARM_BLOCKS):
+            warm.process_block(self.frames)
+        dsp.close()
+        for r in revs:
+            r.close()
+        self.proxy_ms = proxy_ms(eids, prog.ctx.get_output(eids[0]))
+        self._native, self.reverbs = make(audio)
+        self.dsp = RecordingDSP(self._native,
+                                {e: v for v, e in enumerate(eids)},
+                                self.blocks)
+        self.manager = AudioSourceManager(prog.ctx, self.dsp, self.reverbs)
+        self.sources = [self.manager._sources[self.manager.play(
+            e, clip, loop=True)] for e, clip in zip(eids, clips)]
+        n = self.blocks
+        self.rec = AudioRecord(np.zeros(n), np.zeros(n), np.zeros(n),
+                               np.zeros((n, voices), np.int64),
+                               np.zeros((n, self.frames, 2), np.float32))
+        self.error = None
+        self._open = threading.Event()
+        self._t_open = 0.0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="benchmark-audio")
+        self._thread.start()
+
+    def open(self, t_open: float) -> None:
+        """Start the window's blocks, the first due at ``t_open``."""
+        self._t_open = t_open
+        self._open.set()
+
+    def join(self) -> AudioRecord:
+        """Wait for the last block (every block due in the window is then
+        rendered); raise what the thread raised."""
+        self._open.set()
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        self._native.close()
+        for r in self.reverbs:
+            r.close()
+        return self.rec
+
+    def _run(self) -> None:
+        try:
+            self._open.wait()
+            prog, rec, dsp, h = self.prog, self.rec, self.dsp, \
+                self.prog.traffic.height
+            t_open = self._t_open
+            for b in range(self.blocks):
+                due = t_open + b * self.period
+                slack = due - time.perf_counter()
+                if slack > 0.0:
+                    time.sleep(slack)
+                t0 = time.perf_counter()
+                x, z, fx, fz = prog.listener
+                dsp.block = b
+                dsp.set_listener_transform((x, h, z), (fx, 0.0, fz))
+                rec.offsets[b] = [s.read_index for s in self.sources]
+                rec.mix[b] = self.manager.process_block(self.frames)
+                t1 = time.perf_counter()
+                rec.due[b], rec.start[b], rec.end[b] = due, t0, t1
+        except BaseException as e:  # noqa: BLE001 - raised again in join
+            self.error = e
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -140,11 +386,13 @@ def prepare(traffic, seconds: float) -> None:
 
 
 def run_window(prog: Program, seconds: float, seed: int,
-               profile_first: int = 0, profiler=None) -> Window:
+               profile_first: int = 0, profiler=None,
+               pump: AudioPump | None = None) -> Window:
     """Refresh after refresh for ``seconds``, the traffic continuing from
     the warm-up; each refresh's inputs are read before its clock starts.
     With a ``profiler`` (a started ``torch.profiler.profile``) the first
-    ``profile_first`` refreshes are traced, then it is stopped."""
+    ``profile_first`` refreshes are traced, then it is stopped. A ``pump``
+    renders its blocks from the window's open and is joined at its close."""
     traffic, dev = prog.traffic, prog.device
     first = WARM_REFRESHES
     rng = np.random.default_rng([seed, _CHECK_STREAM])
@@ -155,7 +403,10 @@ def run_window(prog: Program, seconds: float, seed: int,
         torch.cuda.reset_peak_memory_stats(dev)
     cpu_open = time.thread_time()
     t_open = time.perf_counter()
+    if pump is not None:
+        pump.open(t_open)
     deadline = t_open + seconds
+    traced_until = None
     k = 0
     while True:
         i = first + k
@@ -174,6 +425,7 @@ def run_window(prog: Program, seconds: float, seed: int,
                 kept[j] = prog.sample(i, listeners, outs)
         k += 1
         if profiler is not None and k == profile_first:
+            traced_until = t1
             _sync(dev)
             profiler.stop()
             profiler = None
@@ -181,7 +433,10 @@ def run_window(prog: Program, seconds: float, seed: int,
             break
     t_close = time.perf_counter()
     cpu_s = time.thread_time() - cpu_open
+    if pump is not None:
+        pump.join()
     if profiler is not None:
+        traced_until = t1
         _sync(dev)
         profiler.stop()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
@@ -190,4 +445,5 @@ def run_window(prog: Program, seconds: float, seed: int,
     if all(s["index"] != last["index"] for s in kept):
         kept.append(last)
     kept.sort(key=lambda s: s["index"])
-    return Window(lat, ends, t_close - t_open, int(peak), kept, cpu_s)
+    return Window(lat, ends, t_close - t_open, int(peak), kept, cpu_s,
+                  traced_until)

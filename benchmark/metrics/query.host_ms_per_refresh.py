@@ -3,12 +3,13 @@ parameters for every view (``core/context.py::Context.get_output`` ->
 ``result_at``), the harness's own span around step 4 of a refresh, per
 refresh, in ms.
 
-Layer: queries. It moves ``refresh_ms_p95``: the reads are the tail of
-every refresh, after the step.
+Layer: queries. It moves ``refreshes_per_s``: the reads end every
+refresh, after the step, and are reported in every cell (the tail,
+``refresh_ms_p95``, is end to end in only some).
 """
 
 UNIT = "ms"
-MOVES = "refresh_ms_p95"
+MOVES = "refreshes_per_s"
 SPANS: dict = {}
 
 

@@ -15,10 +15,16 @@ read from a profiler trace of the window's first refreshes), ``device``
 and, last, ``checks``: each number compared with its limit. The same
 numbers end standard error.
 
-``--control program-bf16`` runs the program's own bf16 state mode and
+A cell whose traffic has ``audio`` also runs the audio callback beside the
+refreshes (``drive.AudioPump``), replays every block of it with the plain
+DSP after the window (``reference_dsp.py``), and reports the blocks'
+lateness and the replay under ``run.audio``.
+
+``--control program-bf16`` runs the program's own bf16 state mode,
 ``--control reference-bf16`` puts the reference computed in bf16 in the
-program's place: the controls the check has to fail (``PERF.md``). The
-driver never passes them.
+program's place, and ``--control audio-bf16`` puts the plain DSP computed in
+bf16 in the audio callback's place: the controls the check has to fail
+(``PERF.md``). The driver never passes them.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ def parse(argv):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    p.add_argument("--control", choices=("program-bf16", "reference-bf16"))
+    p.add_argument("--control", choices=("program-bf16", "reference-bf16",
+                                         "audio-bf16"))
     return p.parse_args(argv)
 
 
@@ -82,7 +89,7 @@ def measure(args, cell, device: str, t_start: float) -> dict:
     """One run of ``cell``: set-up, window, check. Returns the result."""
     import torch
 
-    from benchmark import drive, reference, scenes, tracing
+    from benchmark import check, drive, reference, scenes, tracing
     from benchmark import traffic as traffic_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,11 +115,16 @@ def measure(args, cell, device: str, t_start: float) -> dict:
         wrapped = tracing.wrap(spans)
     precision = ("bf16" if args.control == "program-bf16"
                  else config.get("precision", "f32"))
-    prog = drive.Program(config, traffic, dev, precision,
-                         spans=bool(args.trace))
+    audio = traffic.audio is not None
+    program = drive.AudioProgram if audio else drive.Program
+    prog = program(config, traffic, dev, precision, spans=bool(args.trace))
     marks["context"] = time.perf_counter() - t_start
     drive.warm(prog)
     marks["warm"] = time.perf_counter() - t_start
+    pump = None
+    if audio:
+        pump = drive.AudioPump(prog, args.seconds)
+        marks["audio"] = time.perf_counter() - t_start
     profiler = None
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
@@ -133,7 +145,8 @@ def measure(args, cell, device: str, t_start: float) -> dict:
     if profiler is not None:
         profiler.start()
     win = drive.run_window(prog, args.seconds, args.seed,
-                           profile_first=TRACE_REFRESHES, profiler=profiler)
+                           profile_first=TRACE_REFRESHES, profiler=profiler,
+                           pump=pump)
     found = forbidden_modules()
     if found:
         raise SystemExit(f"benchmark: the run loaded {', '.join(found)}; "
@@ -143,18 +156,33 @@ def measure(args, cell, device: str, t_start: float) -> dict:
     worst, failed, n_failed = _check(args, cell, dev, win, traffic, views,
                                      prog.ctx._published.get("pressure"))
     ref_s = time.perf_counter() - t_ref
-    result = {"correct": not failed, "attempted": len(win.latencies),
+    attempted = len(win.latencies)
+    if pump is not None:
+        numbers, bad, report = _audio_check(args, prog, pump, cell.limits)
+        worst.update(numbers)
+        failed = check.judge([worst], cell.limits)[1]
+        attempted += pump.blocks
+        n_failed += bad
+    result = {"correct": not failed, "attempted": attempted,
               "failed": n_failed}
     lat_ms = sorted(x * 1e3 for x in win.latencies)
     device_extra = {}
     if args.trace:
         info = {"cells": grid.nx * grid.ny, "steps": grid.steps,
                 "views": views,
-                "state_bytes": 2 if precision == "bf16" else 4}
+                "state_bytes": 2 if precision == "bf16" else 4,
+                "refresh_ms_untraced": [x * 1e3 for x in
+                                        win.latencies[TRACE_REFRESHES:]]}
+        if pump is not None:
+            # the blocks that started and ended inside the traced window
+            rec = pump.rec
+            inside = rec.end <= win.traced_until
+            info["audio_block_ms"] = (
+                (rec.end - rec.start)[inside] * 1e3).tolist()
         result["metrics"], device_extra, result["breakdown"] = _per_layer(
             profiler, info, metrics)
     else:
-        result["metrics"] = _end_to_end(cell, win, lat_ms, setup_s)
+        result["metrics"] = _end_to_end(cell, win, lat_ms, setup_s, pump)
     result["device"] = _device(dev, cell.chips, win.memory_peak)
     result["device"].update(device_extra)
     result["card"] = {"power_limit": _power_limit() if dev.type == "cuda"
@@ -165,9 +193,12 @@ def measure(args, cell, device: str, t_start: float) -> dict:
                      "reference_s": ref_s,
                      "checked": [s["index"] for s in win.samples],
                      "refresh_ms_median": statistics.median(lat_ms),
+                     "refresh_ms_p95": _p95(lat_ms),
                      "per_second": _per_second(win.ends),
                      "host_cpu_ms_per_refresh":
                          win.main_thread_cpu_s * 1e3 / len(win.latencies)}
+    if pump is not None:
+        result["run"]["audio"] = report
     result["checks"] = {k: {"value": worst[k], "limit": cell.limits.get(k)}
                         for k in sorted(worst)}
     tracing.unwrap(wrapped)
@@ -208,6 +239,56 @@ def _check(args, cell, dev, win, traffic, views: int, last_rec):
     worst, failed = check.judge(numbers, cell.limits)
     n_failed = sum(1 for n in numbers if check.judge([n], cell.limits)[1])
     return worst, failed, n_failed
+
+
+def _audio_check(args, prog, pump, limits: dict):
+    """Every block of the audio callback, after the window: its inputs
+    against the refresh loop's rows, its mix against the plain DSP's replay
+    (``--control audio-bf16``: the replay in bf16 in the program's place).
+    Returns (the two numbers, the blocks found wrong, ``run.audio``)."""
+    import numpy as np
+
+    from benchmark import check, drive, reference_dsp
+
+    t0 = time.perf_counter()
+    rec, fed, traffic = pump.rec, pump.dsp, prog.traffic
+    n, voices = pump.blocks, prog.voices
+    inputs = check.audio_inputs(
+        fed.rows, fed.fed, rec.offsets, rec.start, rec.end, prog.starts,
+        prog.ends, np.stack(prog.rows), [len(c) for c in traffic.clips],
+        pump.frames)
+    fx, _, fz = drive.VOICE_FORWARD
+    replay = (reference_dsp.Stream.of(traffic.audio), traffic.clips,
+              [float(np.float32(10.0 ** (drive.VOICE_DB / 20.0)))] * voices,
+              traffic.emitters[:voices], [(fx, fz)] * voices,
+              [drive.VOICE_PATTERN] * voices, inputs["rows"],
+              np.ones((n, voices), bool), fed.listener)
+    want = reference_dsp.replay(*replay)
+    got = (reference_dsp.replay(*replay, store=reference_dsp.bf16)
+           if args.control == "audio-bf16" else rec.mix)
+    gaps = check.audio_gap(got, want)
+    ref_s = time.perf_counter() - t0
+    numbers = {"audio_inputs_gap": float(inputs["gap"].sum()),
+               "audio_gap": float(gaps.max())}
+    bad = int((inputs["gap"] | ~(gaps <= limits.get("audio_gap", -1.0)))
+              .sum())
+    ms = (rec.end - rec.due) * 1e3
+    late = ms > pump.period * 1e3
+    cuts = statistics.quantiles(ms.tolist(), n=100, method="inclusive")
+    report = {"blocks": n,
+              "late_blocks": int(late.sum()),
+              "late_per_second": np.bincount(
+                  ((rec.due - rec.due[0])[late]).astype(int),
+                  minlength=int(n * pump.period) + 1).tolist(),
+              "block_ms_quantiles": {str(q): cuts[q - 1]
+                                     for q in (75, 90, 95, 99)},
+              "block_ms_max": float(ms.max()),
+              "host_ms_per_block":
+                  float((rec.end - rec.start).mean() * 1e3),
+              "torn_blocks": int(inputs["torn"].sum()),
+              "proxy_ms_per_block": pump.proxy_ms,
+              "reference_s": ref_s}
+    return numbers, bad, report
 
 
 def _per_layer(profiler, info: dict, metrics: dict):
@@ -273,15 +354,23 @@ def _per_second(ends: list) -> list:
     return out
 
 
-def _end_to_end(cell, win, lat_ms, setup_s) -> dict:
+def _p95(lat_ms: list) -> float:
+    """The 95th percentile of every refresh's latency in the window."""
+    return (statistics.quantiles(lat_ms, n=100, method="inclusive")[94]
+            if len(lat_ms) > 1 else lat_ms[0])
+
+
+def _end_to_end(cell, win, lat_ms, setup_s, pump=None) -> dict:
     values = {
         "refreshes_per_s": len(win.latencies) / win.seconds,
-        "refresh_ms_p95": statistics.quantiles(lat_ms, n=100,
-                                               method="inclusive")[94]
-        if len(lat_ms) > 1 else lat_ms[0],
+        "refresh_ms_p95": _p95(lat_ms),
         "device_mem_peak_gib": win.memory_peak / 2 ** 30,
         "setup_s": setup_s,
     }
+    if pump is not None:
+        rec = pump.rec
+        values["audio_block_ms_p50"] = statistics.median(
+            ((rec.end - rec.due) * 1e3).tolist())
     return {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
             for m in cell.end_to_end}
 

@@ -29,8 +29,11 @@ def cell(traffic: str = "walk", publish: str = "grids") -> cells.Cell:
     with open(os.path.join(cells.HERE, "traffic", traffic + ".json")) as f:
         mix = json.load(f)
     name = f"standin.{traffic}"
-    per_layer = [m for m in bench["per_layer"]
-                 if "workloads" not in m
-                 or any(w.endswith("." + traffic) for w in m["workloads"])]
+
+    def applies(m):
+        return ("workloads" not in m
+                or any(w.endswith("." + traffic) for w in m["workloads"]))
+
     return cells.Cell(name, 1, config(publish), mix, limits(),
-                      bench["end_to_end"], per_layer)
+                      [m for m in bench["end_to_end"] if applies(m)],
+                      [m for m in bench["per_layer"] if applies(m)])

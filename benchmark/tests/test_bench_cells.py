@@ -27,6 +27,9 @@ def test_top_level_keys():
 
 
 def test_names_units_and_keys():
+    for group in ("configs", "workloads"):
+        for e in BENCH[group]:
+            assert 1 <= len(e["why"]) <= 200 and "\n" not in e["why"], e
     seen = set()
     for group in ("configs", "workloads", "end_to_end", "per_layer"):
         for e in BENCH[group]:
@@ -60,9 +63,12 @@ def test_workload_resolves_to_its_files(workload):
     assert cell.chips == entry["chips"] in (1, 4)
     assert cell.config["reduced"] == config["reduced"]
     assert set(cell.limits) >= {"fields_gap", "params_gap", "outputs_gap"}
+    reported = {e["name"] for e in cell.end_to_end}
     for m in cell.per_layer:
         mod = cells.metric_module(m["name"])
         assert mod.UNIT == m["unit"] and mod.MOVES == m["moves"]
+        # what a per-layer metric moves is reported in each of its cells
+        assert m["moves"] in reported, (m["name"], workload)
         assert callable(mod.read) and isinstance(mod.SPANS, dict)
     assert cell.per_layer and len(cell.end_to_end) >= 2
     # the configuration as run: its sizes follow from the grid law

@@ -34,8 +34,11 @@ def test_prints_the_contract_line(capsys, traffic, publish):
     assert list(line)[-1] == "checks"
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] >= 1
-    assert set(line["metrics"]) == {"refreshes_per_s", "refresh_ms_p95",
-                                    "device_mem_peak_gib", "setup_s"}
+    # split4's tail is per layer (refresh.ms_p95), not end to end
+    wanted = {"refreshes_per_s", "device_mem_peak_gib", "setup_s"}
+    if traffic != "split4":
+        wanted.add("refresh_ms_p95")
+    assert set(line["metrics"]) == wanted
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] >= 0
     assert set(line["device"]) >= {"platform", "kind", "count",
@@ -62,6 +65,28 @@ def test_traced_line_has_the_host_metrics(capsys):
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert line["correct"] is True
+
+
+def test_traced_audio_line_reads_the_loop_and_the_callback(capsys):
+    """With an audio thread beside the loop, the loop's readers read as on
+    walk, the callback's reader reads, and no idle gap is the callback's."""
+    lines = {}
+    for traffic in ("walk", "audio"):
+        rc, out, _ = _run(capsys, traffic, "grids", trace=1)
+        assert rc == 0
+        lines[traffic] = json.loads(out.strip().splitlines()[-1])
+        assert lines[traffic]["correct"] is True
+    walk, audio = (set(lines[t]["metrics"]) for t in ("walk", "audio"))
+    assert walk == {"analysis.host_ms_per_refresh",
+                    "query.host_ms_per_refresh"}
+    assert audio == walk | {"audio.host_ms_per_block"}
+    assert lines["audio"]["metrics"]["audio.host_ms_per_block"]["value"] > 0
+    gaps = {n for n, _ in lines["audio"]["breakdown"]["idle_gaps"]}
+    assert "host in audio" not in gaps
+    assert gaps <= {f"host in {n}" for n in (
+        "refresh", "inputs", "step", "query", "route", "solver",
+        "analysis", "simulate+analyze", "pack", "fetch", "publish",
+        "fields", "voxelize", "between refreshes")}
 
 
 def test_refuses_without_a_card():

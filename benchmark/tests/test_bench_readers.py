@@ -67,6 +67,17 @@ def test_readers():
     assert _read("device.idle_pct") == pytest.approx(100 * (1 - 1100 / 2000))
 
 
+def test_refresh_tail_reads_the_untraced_refreshes():
+    """refresh.ms_p95: the inclusive 95th percentile of the refreshes after
+    the traced ones, and nothing where there are none."""
+    read = cells.metric_module("refresh.ms_p95").read
+    lat = [float(k) for k in range(1, 101)]
+    assert read(TRACE, {**INFO, "refresh_ms_untraced": lat}) == \
+        pytest.approx(95.05)
+    assert read(TRACE, {**INFO, "refresh_ms_untraced": []}) is None
+    assert read(TRACE, INFO) is None
+
+
 def test_breakdown():
     b = tracing.breakdown(TRACE)
     ops = dict(b["device_ops"])
@@ -94,3 +105,14 @@ def test_nothing_to_read_gives_nothing():
     static = tracing.reduce([e for e in _refresh(0.0, 0)
                              if e["name"] != "pvb.voxelize"])
     assert _read("voxelize.host_ms_per_refresh", static) is None
+
+
+
+def test_audio_blocks_of_the_traced_window():
+    """audio.host_ms_per_block reads the callback's blocks the harness
+    timed inside the traced window; nothing where none were."""
+    info = dict(INFO, audio_block_ms=[4.0, 5.0, 6.0])
+    read = cells.metric_module("audio.host_ms_per_block").read
+    assert read(TRACE, info) == pytest.approx(5.0)
+    assert read(TRACE, dict(INFO, audio_block_ms=[])) is None
+    assert read(tracing.reduce([]), info) is None

@@ -19,10 +19,19 @@ A traffic file (``benchmark/traffic/<name>.json``) holds:
   doorway of the scene, drawn from the seed, moved one position a refresh
   from closed to open and round again, starting at a seeded position.
   Listeners and emitters then keep out of the doorways.
+- ``audio`` (optional): an audio callback beside the refresh loop
+  (``drive.AudioPump``): ``rate_hz`` and ``frames`` of its stream,
+  ``voices`` (the first emitters, each looping a clip of its own),
+  ``renderer`` (a name in the pump's table), ``smoothing``,
+  ``spatialization`` and ``wet_gain_ratio`` (the DSP's settings),
+  ``reverb_rt60_s`` (one reverb a wet bus), ``clip_s`` ([shortest,
+  longest] clip) and ``clip_dbfs`` (each clip's peak): every clip is
+  stereo white noise, uniform within its peak.
 
 Every draw comes from ``numpy.random.default_rng([seed, stream])``, one
-stream per listener, one for the emitters and one for the door, so the
-positions of refresh i never depend on how many refreshes a run makes.
+stream per listener, one for the emitters, one for the door and one for the
+clips, so the positions of refresh i never depend on how many refreshes a
+run makes, and the clips take nothing from the positions' streams.
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ from benchmark import scenes
 
 # candidate legs tried before a walk turns back along its last leg
 LEG_TRIES = 200
-# streams of the seed's generator
-_EMITTERS, _DOOR, _LISTENERS = 0, 1, 2
+# streams of the seed's generator; listener k takes _LISTENERS + k
+_EMITTERS, _DOOR, _LISTENERS, _CLIPS = 0, 1, 2, 100
 
 
 @dataclasses.dataclass
@@ -155,6 +164,8 @@ class Traffic:
     door_positions: int = 0
     door_phase: int = 0
     door_thickness: float = 0.0
+    audio: dict | None = None
+    clips: list | None = None
 
     def reach(self, i: int) -> None:
         """Lay out every walk as far as refresh ``i``, so that reading a
@@ -207,4 +218,21 @@ def make(grid, scene: dict, params: dict, seed: int) -> Traffic:
         t.door_positions = int(door["positions"])
         t.door_phase = int(rng.integers(t.door_positions))
         t.door_thickness = float(door["thickness_m"])
+    if "audio" in params:
+        t.audio = dict(params["audio"])
+        t.clips = clips(t.audio, seed)
     return t
+
+
+def clips(audio: dict, seed: int) -> list:
+    """The voices' clips, [frames, 2] float32 each, from the clips' own
+    stream: a length drawn from ``clip_s``, then white noise uniform within
+    ``clip_dbfs`` of full scale."""
+    rng = np.random.default_rng([seed, _CLIPS])
+    rate = int(audio["rate_hz"])
+    peak = 10.0 ** (float(audio["clip_dbfs"]) / 20.0)
+    out = []
+    for _ in range(int(audio["voices"])):
+        n = int(round(rng.uniform(*audio["clip_s"]) * rate))
+        out.append(rng.uniform(-peak, peak, (n, 2)).astype(np.float32))
+    return out
