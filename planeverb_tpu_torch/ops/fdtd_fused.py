@@ -63,7 +63,7 @@ from planeverb_tpu_torch.ops._common import (check_field, coefficients,
                                              stream_step, window_scalars)
 from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
-from planeverb_tpu_torch.utils.profiling import spanned
+from planeverb_tpu_torch.utils.profiling import count, span, spanned
 
 __all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
            "fdtd_sim_reference", "fdtd_sim_per_step", "fdtd_sim_batch",
@@ -571,13 +571,18 @@ def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
     ``compute_directions`` is False, DOA. Returns (FdtdResult,
     AnalyzerResults); the recording is the exact [T, nx, ny] buffer the
     sim kernel wrote. ``state_dtype`` picks B1's wave state; the tiled
-    route runs float32 whatever it is, as the JAX package's does."""
+    route runs float32 whatever it is, as the JAX package's does.
+
+    Counts one solver pass and one view in the step's ``route.passes`` and
+    ``route.views`` counters."""
     if _use_tiled(params):
         res, moments = fdtd_tiled.simulate_moments_tiled(
             params, beta, refl, pulse, lix, liy)
     else:
         res, moments = simulate_moments_fused(params, beta, refl, pulse,
                                               lix, liy, state_dtype)
+    count("route.passes")
+    count("route.views")
     out = analyzer.analyze_moments(params, moments, res.onset, res.flux_x,
                                    res.flux_y, efree, listener_x, listener_z,
                                    compute_directions=compute_directions)
@@ -599,6 +604,10 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     either route one ``analyze_moments`` call then assembles every view (on
     a card two launches for all of them).
 
+    The step's ``route.passes`` counter counts the solver passes (1 on the
+    batched route, B on the tiled one) and ``route.views`` the B views; on
+    the tiled route each view's pass runs inside a ``view`` span.
+
     ``lcells``: host [B, 2] listener cells; ``lpos``: B listener world
     positions (x, z), float32 values.
     """
@@ -610,17 +619,21 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     if not _use_tiled(params):
         res, mom = simulate_moments_fused_batch(params, beta, refl, pulse,
                                                 cells, state_dtype)
+        count("route.passes")
         onset, fx, fy = res.onset, res.flux_x, res.flux_y
         del res   # the recordings go before the assembly
     else:
         planes = []
         for cix, ciy in cells:
-            res, mom = fdtd_tiled.simulate_moments_tiled(
-                params, beta, refl, pulse, cix, ciy)
-            planes.append((*mom, res.onset, res.flux_x, res.flux_y))
-            del res   # this listener's recording goes before the next pass
+            with span("view"):
+                res, mom = fdtd_tiled.simulate_moments_tiled(
+                    params, beta, refl, pulse, cix, ciy)
+                count("route.passes")
+                planes.append((*mom, res.onset, res.flux_x, res.flux_y))
+                del res   # this listener's recording goes before the next pass
         planes = [torch.stack(g) for g in zip(*planes)]
         mom, (onset, fx, fy) = Moments(*planes[:5]), planes[5:]
+    count("route.views", len(cells))
     xs, zs = zip(*lpos)
     return analyzer.analyze_moments(params, mom, onset, fx, fy, efree, xs, zs,
                                     compute_directions=compute_directions)

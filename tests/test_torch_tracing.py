@@ -66,7 +66,9 @@ def test_two_steps_record_the_span_tree(publish):
         assert rec.span_count("fold") == rec.span_count("doa") == 1
         # B1, then B2
         assert rec.span_count("solver") == 2
-        assert rec.counters == {"fetch.bytes": rows * 9 * 4}
+        # one listener: one solver pass for one view
+        assert rec.counters == {"fetch.bytes": rows * 9 * 4,
+                                "route.passes": 1, "route.views": 1}
         for s in rec.spans:
             assert s[3] >= s[4] >= 0
             assert s[4] + sum(c[3] for c in _children(rec, s)) == s[3]
