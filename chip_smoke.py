@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards     # the sharded engine across the cards
+    python3 chip_smoke.py --crossover # the route's crossover (phase 10)
 
 With ``--cards`` (a host of two or more cards) it runs only the sharded
 engine on meshes of distinct cards (and, last, one process per card over
@@ -51,7 +52,8 @@ line per phase:
      instructions counted in the SASS (cuobjdump) with the floor their
      instruction slots set;
   5. the engine's main path: ``Context(device="cuda")`` at the headline
-     size, three emitters, five ``step()`` calls, with the kernels' launch
+     size, three emitters, five ``step()`` calls (one float32 listener:
+     B3 + B4 a step, ``fdtd_fused.route_tiled``), with the kernels' launch
      counts, the card's launches in one more step and the step times;
   6. the same engine step on the CPU (the plain versions), its published
      grids held to the card's at the golden-scene tolerances;
@@ -66,13 +68,17 @@ line per phase:
   8. B4 ``rt60_moments_tiled`` against its plain version and against B2 on
      B3's recordings at 459^2 and 964^2, with times and GB/s;
   9. the large-world engine: ``Context`` at 126 m with ``publish="cells"``,
-     three emitters, three ``step()`` calls, with the launch counts (B1
-     once for calibration, B3 and B4 once a step, B2 never), the emitter
+     three emitters, three ``step()`` calls, with the launch counts (B3
+     once for calibration, B3 and B4 once a step, B1 and B2 never), the emitter
      rows held to the grids publish on the same fields, step times and
      peak device memory;
- 10. the route's crossover: B1 + B2 against B3 + B4 at 192^2, 261^2,
-     459^2 and 964^2, the measurement ``fdtd_fused.TILED_MIN_CELLS`` rests
-     on;
+ 10. the route's crossover for one float32 listener: B1 + B2 against
+     B3 + B4 (CUDA events from idle, host enqueue and B1's fold included)
+     at 65^2, 96^2, 128^2, 160^2, 192^2, 261^2, 459^2 and 964^2, the two
+     routes' outputs bit-equal; B4 against B2 on the same recording; and
+     the route ``fdtd_fused.route_tiled`` takes at each size: the
+     measurement ``fdtd_fused.TILED_SINGLE_MIN_CELLS`` rests on (with
+     ``--crossover`` only phases 1, 2 and 10 run);
  11. B5 ``sharded_round`` (the sharded engine's rounds, one cooperative
      launch per device and round over every shard it holds):
      ``simulate_moments_sharded`` at the headline on 2x2, 4x1 and 1x1 meshes
@@ -269,9 +275,10 @@ LARGE = 60.0
 XL = 126.0
 XL_EMITTERS = [(66.0, 63.0), (58.0, 59.0), (63.0, 72.0)]
 XL_STEPS = 3
-# the route's crossover: 25 m (the headline, 192^2), 34 m (261^2), 60 m and
-# 126 m, HugeRoom at 750 Hz
-CROSSOVER = (25.0, 34.0, 60.0, 126.0)
+# the route's crossover, HugeRoom at 750 Hz: 8.4 m (65^2 cells), 12.5 m
+# (96^2), 16.7 m (128^2), 20.8 m (160^2), 25 m (the headline, 192^2), 34 m
+# (261^2), 60 m and 126 m; 1187 steps up to 25 m
+CROSSOVER = (8.4, 12.5, 16.7, 20.8, 25.0, 34.0, 60.0, 126.0)
 CROSSOVER_REPS = 5
 # the sharded engine (phases 11-13): meshes of the one card at the headline,
 # the round length (the Context's default on 96^2 shards), B6's forced tile
@@ -380,6 +387,10 @@ SWEEP_REPS = 3
 LINK_EDGES = (96, 482)
 LINK_REPS = 50
 SPLIT_SOURCES = 256
+# one float32 listener's pass at the headline on the card: B3 + B4, which
+# fdtd_fused.route_tiled takes from TILED_SINGLE_MIN_CELLS (B1 keeps
+# batches and bf16)
+HEADLINE_PASS = {"fdtd_tiled_kernel": 1, "rt60_moments_tiled_kernel": 1}
 
 
 def _require(cond, msg) -> None:
@@ -2510,8 +2521,7 @@ def _integration_phase(pv, kernels, card, label):
             f"get_output {i} over the wire {o} vs in process {want[i]}")
     ids += [c.call("emit", x=x, z=z)["id"] for x, z in WIRE_EMITTERS[3:]]
     step_pass = _device_pass(kernels, lambda: c.call("step"))
-    _require(step_pass == {"fdtd_cluster_kernel": 1,
-                           "rt60_moments_kernel": 1, **ANALYSIS_STEP},
+    _require(step_pass == {**HEADLINE_PASS, **ANALYSIS_STEP},
              f"a step over the wire: device launches {step_pass}")
     rows = c.call("get_outputs")
     _require(rows["ids"] == ids and rows["count"] == len(WIRE_EMITTERS),
@@ -2525,11 +2535,12 @@ def _integration_phase(pv, kernels, card, label):
     _require(np.array_equal(np.asarray(ir["ir"], np.float32), want_ir)
              and np.abs(want_ir).max() > 0, "impulse response over the wire")
     n_valid = sum(v for _, v in want)
-    # the session's steps: B1 + B2 each (the calibration is cached)
+    # the session's steps: B3 + B4 each (the calibration is cached)
     headline_counts = counts_of(fdtd_fused.fdtd_sim,
-                                   fdtd_fused.rt60_moments)
-    _require(headline_counts == {"fdtd_sim": STEPS + 1,
-                                 "rt60_moments": STEPS + 1},
+                                fdtd_tiled.fdtd_sim_tiled,
+                                fdtd_tiled.rt60_moments_tiled)
+    _require(headline_counts == {"fdtd_sim": 0, "fdtd_sim_tiled": STEPS + 1,
+                                 "rt60_moments_tiled": STEPS + 1},
              f"the wire session's launches {headline_counts}")
     # several listeners over the wire: one batched B1 pass and one B2
     # launch a step, each view's rows equal the four-view Context's
@@ -2718,6 +2729,7 @@ def _integration_phase(pv, kernels, card, label):
         texts, cli_counts = {}, {}
         wrappers = (fdtd_fused.fdtd_sim, fdtd_fused.rt60_moments,
                     fdtd_fused.fdtd_sim_batch, fdtd_fused.rt60_moments_batch,
+                    fdtd_tiled.fdtd_sim_tiled, fdtd_tiled.rt60_moments_tiled,
                     reverb.reverb_scan_many)
         for name, argv in commands.items():
             fdtd_fused.reset_launch_counts()
@@ -2781,16 +2793,17 @@ def _integration_phase(pv, kernels, card, label):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    # what each command's run must have launched: B1 + B2 a step (the
+    # what each command's run must have launched: B3 + B4 a step (the
     # calibration is cached), the batched B1 once for four listeners (their
     # moments come from ops/batch.py::analyze_listeners, as in the JAX CLI,
     # not from B2), D2 once for the mix without --native
     _require(cli_counts == {
-        "analyze": {"fdtd_sim": 1, "rt60_moments": 1},
+        "analyze": {"fdtd_sim_tiled": 1, "rt60_moments_tiled": 1},
         "batch": {"fdtd_sim_batch": 1},
-        "render --mix": {"fdtd_sim": 1, "rt60_moments": 1,
+        "render --mix": {"fdtd_sim_tiled": 1, "rt60_moments_tiled": 1,
                          "reverb_scan_many": 1},
-        "render --mix --native": {"fdtd_sim": 1, "rt60_moments": 1}},
+        "render --mix --native": {"fdtd_sim_tiled": 1,
+                                  "rt60_moments_tiled": 1}},
         f"CLI launches {cli_counts}")
     # analyze prints the in-process Context's readouts, character for
     # character; batch is held to four views of one Context at the golden
@@ -3270,6 +3283,60 @@ def _analysis_phase(pv, kernels, label):
     return rows
 
 
+def _crossover_phase(pv, dev, label) -> None:
+    """Phase 10: one float32 listener's pass on each route at each of
+    :data:`CROSSOVER`'s sizes, the two bit-equal, timed in turns from an
+    idle card (the host enqueue and B1's coefficient fold included), B4
+    against B2 on B3's recording, and the route
+    ``fdtd_fused.route_tiled`` takes there."""
+    import torch
+
+    from planeverb_tpu_torch.config import gaussian_pulse
+    from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled, voxelize
+
+    t_phase = time.perf_counter()
+    for size in CROSSOVER:
+        q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
+                                              size, dev)
+        qshape = f"{q.nx}x{q.ny}x{q.response_length}"
+
+        def tiled():
+            return fdtd_tiled.simulate_moments_tiled(q, qb, qr, qp, qx, qy)
+
+        def fused():
+            return fdtd_fused.simulate_moments_fused(q, qb, qr, qp, qx, qy)
+
+        tres, tmom = tiled()
+        fres, fmom = fused()
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b) for a, b in
+                     zip((*tres, *tmom), (*fres, *fmom))),
+                 f"B3 + B4 and B1 + B2 differ at {qshape}")
+        del fres, fmom
+        tiled_ms, fused_ms = _time_pair(tiled, fused, reps=CROSSOVER_REPS)
+        b4_ms, b2_ms = _time_pair(
+            lambda: fdtd_tiled.rt60_moments_tiled(q, tres.pressure,
+                                                  tres.onset),
+            lambda: fdtd_fused.rt60_moments(q, tres.pressure, tres.onset),
+            reps=CROSSOVER_REPS)
+        del tres, tmom
+        routed = ("B3 + B4" if fdtd_fused.route_tiled(
+            q.nx * q.ny, 1, torch.float32, True) else "B1 + B2")
+        mode = fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1)
+        print(f"phase 10 crossover {qshape} ({q.nx * q.ny} cells, one "
+              f"float32 listener routed to {routed} by route_tiled: "
+              f"TILED_SINGLE_MIN_CELLS = "
+              f"{fdtd_fused.TILED_SINGLE_MIN_CELLS}, TILED_MIN_CELLS = "
+              f"{fdtd_fused.TILED_MIN_CELLS}): B1 ({mode} mode) + B2 "
+              f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms, ratio "
+              f"{tiled_ms / fused_ms:.3f}, bit-equal; on B3's recording B4 "
+              f"{b4_ms:.3f} ms, B2 {b2_ms:.3f} ms, ratio "
+              f"{b4_ms / b2_ms:.3f} ({label}, medians of {CROSSOVER_REPS} "
+              f"in turns)", flush=True)
+        torch.cuda.empty_cache()
+    print(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "planeverb_tpu_torch")):
@@ -3344,6 +3411,12 @@ def main() -> int:
           f"{os.path.relpath(lib_path, root)}; B1 cluster mode at {p.nx}x"
           f"{p.ny}: {clusters} clusters of 16 blocks active at once "
           f"(cudaOccupancyMaxActiveClusters); ptxas: {' | '.join(regs)}")
+    if "--crossover" in sys.argv[1:]:
+        _crossover_phase(pv, dev, label)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 3. B1 vs its plain version: the cluster mode (one launch a pass,
     # the headline's mode) and the per-step mode, in turns in one run, both
@@ -3469,23 +3542,27 @@ def main() -> int:
     fdtd_fused.reset_launch_counts()
     lx, lz = HEADLINE["listener"]
     free_grid.clear_cache()   # the calibration is counted
+    # one float32 listener at the headline takes B3 + B4 on the card
+    # (fdtd_fused.route_tiled), the calibration's pass too
+    _require(fdtd_fused.route_tiled(p.nx * p.ny, 1, torch.float32, True),
+             "the headline's one listener must take the tiled route")
     ctx = pv.Context(cfg, scene=scene, device="cuda")
-    _require(fdtd_fused.fdtd_sim.launches == 1, "calibration must run B1 once")
-    _require(fdtd_fused.rt60_moments.launches == 0, "B2 ran at init")
+    _require(fdtd_tiled.fdtd_sim_tiled.launches == 1
+             and fdtd_fused.fdtd_sim.launches == 0,
+             "calibration must run B3 once")
+    _require(fdtd_tiled.rt60_moments_tiled.launches == 0, "B4 ran at init")
     ctx.set_listener_position(lx, 0.0, lz)
     eids = [ctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
     ev_ms, wall_ms = zip(*(_once(ctx.step) for _ in range(STEPS)))
-    launches = {"fdtd_sim": fdtd_fused.fdtd_sim.launches,
-                "rt60_moments": fdtd_fused.rt60_moments.launches}
-    _require(launches == {"fdtd_sim": 1 + STEPS, "rt60_moments": STEPS},
-             launches)
-    _require(fdtd_tiled.fdtd_sim_tiled.launches == 0
-             and fdtd_tiled.rt60_moments_tiled.launches == 0,
-             "the headline must stay on B1 + B2")
+    launches = counts_of(fdtd_fused.fdtd_sim, fdtd_fused.rt60_moments,
+                         fdtd_tiled.fdtd_sim_tiled,
+                         fdtd_tiled.rt60_moments_tiled)
+    _require(launches == {"fdtd_sim": 0, "rt60_moments": 0,
+                          "fdtd_sim_tiled": 1 + STEPS,
+                          "rt60_moments_tiled": STEPS}, launches)
     # the card's launches in one more step of the main path
     hl_step = _device_pass(kernels, ctx.step)
-    _require(hl_step == {"fdtd_cluster_kernel": 1, "rt60_moments_kernel": 1,
-                         **ANALYSIS_STEP},
+    _require(hl_step == {**HEADLINE_PASS, **ANALYSIS_STEP},
              f"headline step device launches {hl_step}")
     outs = [ctx.get_output(e) for e in eids]
     _require(all(o.valid for o in outs), outs)
@@ -3502,18 +3579,22 @@ def main() -> int:
     _require(ir.shape == (p.response_length,) and np.abs(ir).max() > 0,
              "impulse response near the listener is silent")
     tput = p.nx * p.ny * p.response_length / (statistics.median(ev_ms) / 1e3)
-    # the step's stages: B1 and its enqueue (phase 3), B2 (phase 4), and
-    # the assembly + DOA on this pass's moments
-    sres, smom = fdtd_fused.simulate_moments_fused(p, beta, refl, pulse,
+    # the step's stages: B3 and B4 (CUDA events from an idle card, the
+    # enqueue included), and the assembly + DOA on this pass's moments
+    sres, smom = fdtd_tiled.simulate_moments_tiled(p, beta, refl, pulse,
                                                    lix, liy)
+    hl_b3_ms = _cuda_ms(lambda: fdtd_tiled.fdtd_sim_tiled(
+        p, beta, refl, pulse, lix, liy), 5)
+    hl_b4_ms = _cuda_ms(lambda: fdtd_tiled.rt60_moments_tiled(
+        p, sres.pressure, sres.onset), 5)
     asm_ms, asm_wall = _stages(analyzer, p, sres, smom, ctx.efree,
                                float(np.float32(lx)), float(np.float32(lz)),
                                directions=not ctx._lazy_doa)
     del sres, smom
-    print(f"phase 5 step stages {shape}: B1 {b1_ms:.3f} ms (host enqueue "
-          f"{b1_enq:.3f} ms), B2 {b2_ms:.3f} ms, assembly + DOA "
-          f"{asm_ms:.3f} ms (host {asm_wall:.3f} ms), step "
-          f"{statistics.median(ev_ms):.3f} ms ({label})", flush=True)
+    print(f"phase 5 step stages {shape}: B3 {hl_b3_ms:.3f} ms, B4 "
+          f"{hl_b4_ms:.3f} ms, assembly + DOA {asm_ms:.3f} ms (host "
+          f"{asm_wall:.3f} ms), step {statistics.median(ev_ms):.3f} ms "
+          f"({label})", flush=True)
     print(f"phase 5 main path Context(device='cuda') {shape}: EFree "
           f"{ctx.efree:.6g}; launches {launches} (calibration + {STEPS} "
           f"steps); device launches of a step {hl_step}; step median "
@@ -3716,8 +3797,8 @@ def main() -> int:
         "rt60_moments": fdtd_fused.rt60_moments.launches,
         "fdtd_sim_tiled": fdtd_tiled.fdtd_sim_tiled.launches,
         "rt60_moments_tiled": fdtd_tiled.rt60_moments_tiled.launches}
-    _require(xl_launches == {"fdtd_sim": 1, "rt60_moments": 0,
-                             "fdtd_sim_tiled": XL_STEPS,
+    _require(xl_launches == {"fdtd_sim": 0, "rt60_moments": 0,
+                             "fdtd_sim_tiled": 1 + XL_STEPS,
                              "rt60_moments_tiled": XL_STEPS}, xl_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     xl_step = _device_pass(kernels, xctx.step)
@@ -3778,26 +3859,7 @@ def main() -> int:
     print(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
 
     # -- 10. the route's crossover: B1 + B2 against B3 + B4 by grid size
-    t_phase = time.perf_counter()
-    for size in CROSSOVER:
-        q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
-                                              size, dev)
-        qshape = f"{q.nx}x{q.ny}x{q.response_length}"
-        tiled_ms, fused_ms = _time_pair(
-            lambda: fdtd_tiled.simulate_moments_tiled(q, qb, qr, qp, qx, qy),
-            lambda: fdtd_fused.simulate_moments_fused(q, qb, qr, qp, qx, qy),
-            reps=CROSSOVER_REPS)
-        routed = ("B3 + B4" if q.nx * q.ny > fdtd_fused.TILED_MIN_CELLS
-                  else "B1 + B2")
-        mode = fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1)
-        print(f"phase 10 crossover {qshape} ({q.nx * q.ny} cells, routed "
-              f"to {routed} by TILED_MIN_CELLS = "
-              f"{fdtd_fused.TILED_MIN_CELLS}): B1 ({mode} mode) + B2 "
-              f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms, ratio "
-              f"{tiled_ms / fused_ms:.3f} ({label}, medians of "
-              f"{CROSSOVER_REPS} in turns)", flush=True)
-    torch.cuda.empty_cache()
-    print(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
+    _crossover_phase(pv, dev, label)
 
     from planeverb_tpu_torch import parallel
     from planeverb_tpu_torch.parallel import solver_fused
@@ -4062,10 +4124,10 @@ def main() -> int:
         ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
         ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
     rounds = -(-p.response_length // mctx._halo)
-    _require(m_launches == {"fdtd_sim": 1, "rt60_moments": 0,
+    _require(m_launches == {"fdtd_sim": 0, "rt60_moments": 0,
                             "rt60_moments_many": STEPS,
                             "sharded_round": rounds * STEPS,
-                            "banded_round": 0, "fdtd_sim_tiled": 0,
+                            "banded_round": 0, "fdtd_sim_tiled": 1,
                             "rt60_moments_tiled": 0}, m_launches)
     m_step = _device_pass(kernels, mctx.step)
     _require(m_step == {"round_kernel B5": rounds,
@@ -4113,10 +4175,10 @@ def main() -> int:
         ("fdtd_sim_tiled", fdtd_tiled.fdtd_sim_tiled),
         ("rt60_moments_tiled", fdtd_tiled.rt60_moments_tiled))}
     xrounds = -(-xp.response_length // xm._halo)
-    _require(xm_launches == {"fdtd_sim": 1, "rt60_moments": 0,
+    _require(xm_launches == {"fdtd_sim": 0, "rt60_moments": 0,
                              "rt60_moments_many": 0, "sharded_round": 0,
                              "banded_round": xrounds * XL_STEPS,
-                             "fdtd_sim_tiled": 0,
+                             "fdtd_sim_tiled": 1,
                              "rt60_moments_tiled": 4 * XL_STEPS},
              xm_launches)
     xm_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -4233,9 +4295,9 @@ def main() -> int:
     veids = [vctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
     vev, vwall = zip(*(_once(vctx.step) for _ in range(STEPS)))
     v_launches = counts_of(*sim_fns)
-    _require(v_launches == {"fdtd_sim": 1, "fdtd_sim_batch": STEPS,
+    _require(v_launches == {"fdtd_sim": 0, "fdtd_sim_batch": STEPS,
                             "rt60_moments": 0, "rt60_moments_batch": STEPS,
-                            "fdtd_sim_tiled": 0, "rt60_moments_tiled": 0},
+                            "fdtd_sim_tiled": 1, "rt60_moments_tiled": 0},
              v_launches)
     v_step = _device_pass(kernels, vctx.step)
     _require(v_step == {"fdtd_cluster_kernel": 1, "rt60_moments_kernel": 1,
@@ -4303,8 +4365,8 @@ def main() -> int:
     xv_launches = counts_of(*sim_fns)
     nxv = len(XL_VIEWS)
     _require(xv_launches == {
-        "fdtd_sim": 1, "fdtd_sim_batch": 0, "rt60_moments": 0,
-        "rt60_moments_batch": 0, "fdtd_sim_tiled": nxv * XL_MULTI_STEPS,
+        "fdtd_sim": 0, "fdtd_sim_batch": 0, "rt60_moments": 0,
+        "rt60_moments_batch": 0, "fdtd_sim_tiled": 1 + nxv * XL_MULTI_STEPS,
         "rt60_moments_tiled": nxv * XL_MULTI_STEPS}, xv_launches)
     xv_peak = torch.cuda.max_memory_allocated()
     xrec_bytes = xp.nx * xp.ny * xp.response_length * 4
@@ -4340,8 +4402,8 @@ def main() -> int:
     mhalo = mv._halo
     mrounds = -(-p.response_length // mhalo)
     _require(mv_launches == {
-        "fdtd_sim": 1, "fdtd_sim_batch": 0, "rt60_moments": 0,
-        "rt60_moments_batch": 0, "fdtd_sim_tiled": 0,
+        "fdtd_sim": 0, "fdtd_sim_batch": 0, "rt60_moments": 0,
+        "rt60_moments_batch": 0, "fdtd_sim_tiled": 1,
         "rt60_moments_tiled": 0, "rt60_moments_many": MESH_VIEWS * STEPS,
         "sharded_round": mrounds * MESH_VIEWS * STEPS,
         "banded_round": 0}, mv_launches)
@@ -4656,7 +4718,8 @@ def main() -> int:
     # the main path on a 4x1 mesh: Context at the headline, which takes the
     # split (48-row shards, halo 16), one view and then two
     mesh41 = parallel.grid_mesh(["cuda:0"] * 4, OVERLAP_MESHES[0])
-    ctx_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch, *split_fns)
+    ctx_fns = (fdtd_fused.fdtd_sim, fdtd_fused.fdtd_sim_batch,
+               fdtd_tiled.fdtd_sim_tiled, *split_fns)
     fdtd_fused.reset_launch_counts()
     free_grid.clear_cache()   # the calibration is counted
     sctx = pv.Context(cfg, scene=scene, mesh=mesh41)
@@ -4666,7 +4729,8 @@ def main() -> int:
     seids = [sctx.emissions.emit(x, 0.0, z) for x, z in EMITTERS]
     sev, swall = zip(*(_once(sctx.step) for _ in range(STEPS)))
     s_launches = counts_of(*ctx_fns)
-    _require(s_launches == {"fdtd_sim": 1, "fdtd_sim_batch": 0,
+    _require(s_launches == {"fdtd_sim": 0, "fdtd_sim_batch": 0,
+                            "fdtd_sim_tiled": 1,
                             "sharded_round": rounds * 2 * STEPS,
                             "banded_round": 0, "rt60_moments": 0,
                             "rt60_moments_many": STEPS,
@@ -4694,7 +4758,7 @@ def main() -> int:
     svev, _ = zip(*(_once(sv.step) for _ in range(2)))
     sv_launches = counts_of(*ctx_fns)
     _require(sv_launches == {
-        "fdtd_sim": 1, "fdtd_sim_batch": 0,
+        "fdtd_sim": 0, "fdtd_sim_batch": 0, "fdtd_sim_tiled": 1,
         "sharded_round": rounds * 2 * MESH_VIEWS * 2, "banded_round": 0,
         "rt60_moments": 0, "rt60_moments_many": MESH_VIEWS * 2,
         "rt60_moments_tiled": 0},
@@ -4727,7 +4791,8 @@ def main() -> int:
     xsev, xswall = zip(*(_once(xs.step) for _ in range(XL_SPLIT_STEPS)))
     xs_launches = counts_of(*ctx_fns)
     _require(xs_launches == {
-        "fdtd_sim": 1, "fdtd_sim_batch": 0, "sharded_round": 0,
+        "fdtd_sim": 0, "fdtd_sim_batch": 0, "fdtd_sim_tiled": 1,
+        "sharded_round": 0,
         "banded_round": xrounds * 2 * XL_SPLIT_STEPS,
         "rt60_moments": 0, "rt60_moments_many": 0,
         "rt60_moments_tiled": 4 * XL_SPLIT_STEPS},
@@ -4786,19 +4851,20 @@ def main() -> int:
         return max(v[1] for d in dicts for v in d.values())
 
     # device_launches_per_pass: the kernel's launches on the card in one
-    # step of its main path (one pass; for the per-step mode one headline
-    # pass), as the C launchers counted them in this run. No single PyTorch
-    # call computes any of these functions, so every library_ms is null
+    # step of its main path (one pass; for B1's two modes one headline
+    # pass, for B2 alone the bf16 step), as the C launchers counted them in
+    # this run. No single PyTorch call computes any of these functions, so
+    # every library_ms is null
     print(json.dumps({"kernels": [
         row("fdtd_sim", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             launches["fdtd_sim"], err_of(b1), b1_ms, b1_plain_ms,
-            _sim_bound(p), hl_step["fdtd_cluster_kernel"]),
+            _sim_bound(p), cluster_pass["fdtd_cluster_kernel"]),
         row("fdtd_sim per-step", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             b1_step_launches, err_of(b1s), b1_step_ms, b1_plain_ms,
             _sim_bound(p), step_pass["fdtd_step_kernel"]),
         row("rt60_moments", "moments.cu", "ops/fdtd_pallas.py:246",
             launches["rt60_moments"], err_of(b2), b2_ms, b2_plain_ms,
-            _moments_bound(p), hl_step["rt60_moments_kernel"]),
+            _moments_bound(p), h_step["rt60_moments_kernel"]),
         row("rt60_moments_many", "moments.cu",
             "parallel/solver_pallas.py:1256", m_launches["rt60_moments_many"],
             err_of(b2r["table_err"]), b2r["table_ms"], b2r["table_plain_ms"],

@@ -14,12 +14,15 @@ ProjectPlaneverb/src/Context/PvContext.cpp):
 
 One step on a CUDA device is: voxelize (when the geometry changed) -> the
 simulation and RT60-moments kernels -> parameter assembly and DOA -> the
-publish. The kernels take one of two routes by grid size
-(``ops/fdtd_fused.py::pipeline_auto``): up to ``TILED_MIN_CELLS`` solver
-cells the one-launch-per-step B1 and B2 (``csrc/fdtd_fused.cu``), above it
-the large-world B3 and B4 (``csrc/fdtd_tiled.cu``: k steps per launch over
-tiles, and the moments staged in reverse chunks). On the CPU the same step
-runs the kernels' plain versions.
+publish. The kernels take one of two routes
+(``ops/fdtd_fused.py::pipeline_auto``, by ``route_tiled``): the tiled B3
+and B4 (``csrc/fdtd_tiled.cu``: the whole pass in one cooperative launch,
+k steps a round over tiles spread across every SM, and the moments staged
+in reverse chunks) above ``TILED_MIN_CELLS`` solver cells and, for a
+float32 step on the card, from ``TILED_SINGLE_MIN_CELLS``; otherwise B1
+and B2 (``csrc/fdtd_fused.cu``, ``csrc/moments.cu``: one thread-block
+cluster a listener, one launch a pass). On the CPU the same step runs the
+kernels' plain versions, routed by ``TILED_MIN_CELLS`` alone.
 
 With ``mesh=`` the step runs the sharded engine
 (``parallel/solver_fused.py::pipeline_sharded``): the fields are padded to
@@ -284,6 +287,11 @@ class Context:
         # assignment is atomic, so readers never pair new results with an
         # old listener position (or vice versa)
         self._published: dict | None = None
+        # the same snapshot without the recording, which result_at reads: a
+        # reader held up inside it (an audio callback the loop's thread took
+        # the interpreter lock from) then keeps no recording alive beside
+        # the published one and the one the next step writes
+        self._queried: dict | None = None
         self._iteration = 0
         self._iter_cond = threading.Condition()
 
@@ -496,6 +504,8 @@ class Context:
                 published["cells"] = {cell: fetched[..., i, :]
                                       for i, cell in enumerate(wanted)}
                 published["packed_device"] = packed   # [(B,) gx, gy, 9]
+            self._queried = {k: v for k, v in published.items()
+                             if k != "pressure"}
             self._published = published        # single atomic assignment
             with self._iter_cond:
                 self._iteration += 1
@@ -613,7 +623,7 @@ class Context:
         an index out of range returns the invalid sentinel, and a single
         listener's snapshot answers only ``listener=0``.
         """
-        results = self._published              # one consistent snapshot
+        results = self._queried                # one consistent snapshot
         if results is None:
             return invalid_output()
         p = self.params

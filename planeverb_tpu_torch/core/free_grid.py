@@ -94,8 +94,9 @@ def _efree_on(params: GridParams, device: torch.device) -> float:
 def calibrate_free_field(params: GridParams, device="cuda") -> float:
     """EFree for this grid configuration on ``device`` (default the card;
     ``device="cpu"`` runs the plain version): one simulation the first time
-    (one B1 launch on a CUDA device), the cached value after that. A CUDA
-    device without a card raises: there is no silent move to the CPU."""
+    (on a CUDA device one B1 or B3 launch, as ``simulate_auto`` routes
+    it), the cached value after that. A CUDA device without a card raises:
+    there is no silent move to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -7,7 +7,10 @@ audio-thread pipeline is C++ (PvDSPContext.cpp); so is ours.
 :class:`NativeDSPContext` mirrors :class:`planeverb_tpu_torch.dsp.DSPContext`'s
 Python interface 1:1 but runs the per-callback hot loop in compiled C++ with
 no Python between ``submit_source`` and the output buses — suitable for real
-audio callbacks; it runs on the host, never on the card.
+audio callbacks; it runs on the host, never on the card. Its calls keep
+the interpreter lock (the JAX module's release it), so a callback sharing
+the interpreter with a busy refresh loop does not queue for the lock after
+every call.
 :class:`NativeEngineClient` drives the flat C ABI that game engines link
 against (``src/pv_engine_client.cpp``) against an engine server.
 
@@ -79,7 +82,10 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    lib = ctypes.CDLL(build_library())
+    # every call keeps the interpreter lock (PyDLL): each is microseconds of
+    # work, and an audio callback that handed the lock over at each of its
+    # ~100 calls a block would wait for the refresh loop's thread each time
+    lib = ctypes.PyDLL(build_library())
     f32 = ctypes.c_float
     pf32 = ctypes.POINTER(ctypes.c_float)
     lib.pvdsp_init.restype = ctypes.c_void_p

@@ -37,7 +37,10 @@ counts its kernel launches in its ``launches`` attribute;
 :func:`simulate_auto`, :func:`pipeline_auto` and :func:`pipeline_auto_batch`
 route a grid above :data:`TILED_MIN_CELLS` cells to the tiled kernels of
 ``ops/fdtd_tiled.py`` (B3, B4; float32 state, one listener a pass), on the
-card and in the plain versions alike.
+card and in the plain versions alike. On the card :func:`simulate_auto`
+and :func:`pipeline_auto` also send one float32 listener there from
+:data:`TILED_SINGLE_MIN_CELLS` (:func:`route_tiled`); B1 keeps batches,
+bf16 passes and the smaller grids.
 
 Fields are exactly [nx, ny] and a recording exactly [T, nx, ny]: no
 padding, no chunking, and no element limit (offsets are 64-bit); a batch
@@ -76,7 +79,8 @@ __all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
            "rt60_moments_probe", "simulate_moments_fused",
            "simulate_moments_fused_reference", "simulate_moments_fused_batch",
            "simulate_auto", "pipeline_auto", "pipeline_auto_batch",
-           "reset_launch_counts", "TILED_MIN_CELLS"]
+           "reset_launch_counts", "TILED_MIN_CELLS", "TILED_SINGLE_MIN_CELLS",
+           "route_tiled"]
 
 # the wave-state types of B1 (and recording types of B2)
 STATE_DTYPES = (torch.float32, torch.bfloat16)
@@ -535,25 +539,55 @@ def simulate_moments_fused_batch(params: GridParams, beta, refl, pulse,
 
 
 # Grids of more than this many solver cells (nx * ny) take the tiled route
-# (B3 + B4, ops/fdtd_tiled.py); smaller ones B1 (its cluster mode) + B2.
-# chip_smoke.py phase 10 measures the crossover (PERF.md). The threshold
-# sits at the headline's 192^2 = 36,864 cells, which is also the most B1's
-# cluster mode holds: the headline, batches of listeners and every
-# calibration grid (at most 25 m, so at most 192^2) stay on B1 + B2, and
-# every larger grid is tiled. On an H100 the redesigned B3 + B4 now beat B1
-# + B2 for one listener at 192^2 too (ROADMAP records the move).
+# (B3 + B4, ops/fdtd_tiled.py) whatever else holds; at or below it batches
+# of listeners (pipeline_auto_batch, ops/batch.py), bf16 passes and the
+# plain versions stay on B1 (its cluster mode) + B2, and a mesh's shards on
+# B5 (parallel/solver_fused.py). It is also the most B1's cluster mode
+# holds, so the route sends B1 no grid it steps one launch at a time: one
+# batched B1 pass of four views at 192^2 beats four B3 passes.
 TILED_MIN_CELLS = 192 * 192
+# One float32 listener on the card takes the tiled route from this many
+# cells, the smallest size swept: B3 + B4 spread the pass over every SM and
+# fold the coefficients in the kernel, where B1's cluster holds a listener
+# on 16 SMs after a fold of ~50 launches on the host. chip_smoke.py phase 10
+# on an H100 80GB HBM3 at 700 W (CUDA events from idle, the host enqueue
+# and B1's fold included, medians of 5 in turns), B3 + B4 over B1 + B2 in
+# two runs: 0.598 / 0.585 at 65^2, 0.702 / 0.690 at 96^2, 0.572 / 0.566 at
+# 128^2, 0.494 / 0.510 at 160^2, 0.471 / 0.456 at 192^2. Nothing smaller
+# was measured, so smaller grids keep B1.
+TILED_SINGLE_MIN_CELLS = 65 * 65
+
+
+def route_tiled(cells: int, listeners: int, state_dtype,
+                card: bool) -> bool:
+    """Whether a pass of ``listeners`` listeners over ``cells`` solver cells
+    with ``state_dtype`` wave state, on the card or not, takes the tiled
+    route (B3 + B4) rather than B1 + B2: above :data:`TILED_MIN_CELLS`
+    always; one float32 listener on the card from
+    :data:`TILED_SINGLE_MIN_CELLS`. The tiled route runs float32 whatever
+    it is given, so a bf16 pass stays on B1 under TILED_MIN_CELLS; on the
+    CPU the plain B1 is the cheaper of two bit-equal versions."""
+    if cells > TILED_MIN_CELLS:
+        return True
+    return (card and listeners == 1 and state_dtype == torch.float32
+            and cells >= TILED_SINGLE_MIN_CELLS)
 
 
 def _use_tiled(params: GridParams) -> bool:
     return params.nx * params.ny > TILED_MIN_CELLS
 
 
+def _single_tiled(params: GridParams, beta, state_dtype) -> bool:
+    return route_tiled(params.nx * params.ny, 1, state_dtype,
+                       beta.device.type == "cuda")
+
+
 def simulate_auto(params: GridParams, beta, refl, pulse,
                   lix: int, liy: int) -> FdtdResult:
-    """One simulation pass on the fields' device: B1, or B3 above
-    :data:`TILED_MIN_CELLS` cells."""
-    if _use_tiled(params):
+    """One float32 simulation pass on the fields' device, routed by
+    :func:`route_tiled`: B3 above :data:`TILED_MIN_CELLS` cells and, on the
+    card, from :data:`TILED_SINGLE_MIN_CELLS`; B1 otherwise."""
+    if _single_tiled(params, beta, torch.float32):
         res, _ = fdtd_tiled.fdtd_sim_tiled(params, beta, refl, pulse, lix, liy)
     else:
         res, _ = fdtd_sim(params, beta, refl, pulse, lix, liy)
@@ -566,18 +600,22 @@ def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
                   compute_directions: bool = True,
                   state_dtype=torch.float32
                   ) -> tuple[FdtdResult, AnalyzerResults]:
-    """Full pass on the fields' device: B1 + B2 (B3 + B4 above
-    :data:`TILED_MIN_CELLS` cells), then parameter assembly and, unless
-    ``compute_directions`` is False, DOA. Returns (FdtdResult,
-    AnalyzerResults); the recording is the exact [T, nx, ny] buffer the
-    sim kernel wrote. ``state_dtype`` picks B1's wave state; the tiled
-    route runs float32 whatever it is, as the JAX package's does.
+    """Full pass on the fields' device, routed by :func:`route_tiled`: B3
+    + B4 above :data:`TILED_MIN_CELLS` cells and, for float32 state on the
+    card, from :data:`TILED_SINGLE_MIN_CELLS`; B1 + B2 otherwise. Then
+    parameter assembly and, unless ``compute_directions`` is False, DOA.
+    Returns (FdtdResult, AnalyzerResults); the recording is the exact [T,
+    nx, ny] buffer the sim kernel wrote. ``state_dtype`` picks B1's wave
+    state; the tiled route runs float32 whatever it is, as the JAX
+    package's does, so it takes no bf16 pass at or below TILED_MIN_CELLS.
 
     Counts one solver pass and one view in the step's ``route.passes`` and
-    ``route.views`` counters."""
-    if _use_tiled(params):
+    ``route.views`` counters, and a pass on B3 + B4 in
+    ``route.tiled_passes``."""
+    if _single_tiled(params, beta, state_dtype):
         res, moments = fdtd_tiled.simulate_moments_tiled(
             params, beta, refl, pulse, lix, liy)
+        count("route.tiled_passes")
     else:
         res, moments = simulate_moments_fused(params, beta, refl, pulse,
                                               lix, liy, state_dtype)
@@ -605,8 +643,11 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     a card two launches for all of them).
 
     The step's ``route.passes`` counter counts the solver passes (1 on the
-    batched route, B on the tiled one) and ``route.views`` the B views; on
-    the tiled route each view's pass runs inside a ``view`` span.
+    batched route, B on the tiled one, also counted in
+    ``route.tiled_passes``) and ``route.views`` the B views; on the tiled
+    route each view's pass runs inside a ``view`` span. The route is
+    :data:`TILED_MIN_CELLS`' alone: :func:`route_tiled`'s single-listener
+    threshold does not apply to a batch.
 
     ``lcells``: host [B, 2] listener cells; ``lpos``: B listener world
     positions (x, z), float32 values.
@@ -629,6 +670,7 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
                 res, mom = fdtd_tiled.simulate_moments_tiled(
                     params, beta, refl, pulse, cix, ciy)
                 count("route.passes")
+                count("route.tiled_passes")
                 planes.append((*mom, res.onset, res.flux_x, res.flux_y))
                 del res   # this listener's recording goes before the next pass
         planes = [torch.stack(g) for g in zip(*planes)]

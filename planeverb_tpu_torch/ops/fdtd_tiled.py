@@ -24,7 +24,9 @@ launches the kernel (or raises), a CPU tensor takes the plain version, any
 other device raises, and nothing falls back. Each wrapper counts its
 launches in its ``launches`` attribute (one per call);
 ``fdtd_fused.reset_launch_counts`` resets them. ``fdtd_fused.pipeline_auto``
-routes grids above ``fdtd_fused.TILED_MIN_CELLS`` cells here.
+routes grids above ``fdtd_fused.TILED_MIN_CELLS`` cells here and, on the
+card, one float32 listener from ``fdtd_fused.TILED_SINGLE_MIN_CELLS``
+(``fdtd_fused.route_tiled``).
 """
 
 from __future__ import annotations

@@ -620,3 +620,42 @@ def test_cached_efree_across_the_clamp_matches_jax(counted_efree):
     want = jfree_grid.calibrate_free_field(jpv.compute_grid_params(
         jpv.PlaneverbConfig(30.0, 30.0, 275)))
     assert abs(vals[0] - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.parametrize("publish", ["grids", "cells"])
+def test_queries_hold_no_recording(publish, monkeypatch):
+    """``result_at`` reads the published snapshot without its recording: a
+    reader held up inside it while the next step runs (an audio callback
+    beside the refresh loop) keeps the old recording alive no longer than
+    the step that replaces it. Its answers are the published ones."""
+    import gc
+    import sys
+    import weakref
+
+    from planeverb_tpu_torch.core import context as tcontext
+
+    ctx = tpv.Context(tpv.PlaneverbConfig(6.0, 6.0, 275), publish=publish,
+                      device="cpu")
+    ctx.geometry.add(tpv.AABB(2.0, 4.0, 1.0, 0.5, 0.9))
+    eid = ctx.emissions.emit(4.5, 0.0, 3.0)
+    ctx.set_listener_position(3.0, 0.0, 3.0)
+    ctx.step()
+    held = []
+    real = tcontext._output_from_row if publish == "cells" else tcontext.vec2
+
+    def spy(*args):      # called inside result_at, its snapshot in reach
+        held.append(sys._getframe(1).f_locals["results"])
+        return real(*args)
+
+    monkeypatch.setattr(tcontext, "_output_from_row" if publish == "cells"
+                        else "vec2", spy)
+    out = ctx.get_output(eid)
+    assert out.valid and held
+    snapshot = held[-1]
+    assert "pressure" not in snapshot
+    assert all(snapshot[k] is v for k, v in ctx._published.items()
+               if k != "pressure")
+    recording = weakref.ref(ctx._published["pressure"])
+    ctx.step()
+    gc.collect()
+    assert recording() is None    # freed while the old snapshot is held

@@ -14,6 +14,7 @@ package's on 275 Hz SmallRoom Contexts, at tests/test_torch_audio.py's
 ROADMAP C1), and bit for bit against their chain driven by hand.
 """
 
+import ctypes
 import os
 import time
 
@@ -181,6 +182,15 @@ def test_libraries_are_the_ports_own_builds():
                                                         "libpvengine")
     assert os.path.dirname(native._SRC) == os.path.join(
         os.path.dirname(native.__file__), "src")
+
+
+def test_dsp_calls_keep_the_interpreter_lock():
+    """The DSP library's calls (microseconds each, ~100 an audio callback)
+    keep the interpreter lock, so a callback beside a busy refresh loop
+    does not queue for it after each; the engine client's calls, which wait
+    on a socket, release it."""
+    assert isinstance(native.load_library(), ctypes.PyDLL)
+    assert not isinstance(native.load_engine_client_library(), ctypes.PyDLL)
 
 
 @pytest.mark.parametrize("spatialize", [True, False])

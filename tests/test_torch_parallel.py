@@ -275,6 +275,33 @@ def test_1x1_beyond_b5_delegates_to_tiled(room, monkeypatch):
     assert set(calls) == {"banded_round"}
 
 
+def test_shards_keep_their_own_rule(room, monkeypatch):
+    """The single-listener rule (``fdtd_fused.route_tiled``) does not reach
+    a mesh's shards: with it sending every pass to B3 + B4, a 1x1 mesh at
+    or under TILED_MIN_CELLS still runs B5 rounds, equal to B1 + B2."""
+    p, _, fields, (lix, liy), ref = room
+    mesh = _cpu_mesh((1, 1))
+    b, r, pl, nxp, nyp = _padded(p, fields, mesh)
+    calls = []
+
+    def spy(name, real):
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return real(*args, **kwargs)
+        return wrapped
+
+    for mod, name in ((fdtd_tiled, "simulate_moments_tiled"),
+                      (solver_fused, "sharded_round"),
+                      (solver_fused, "banded_round")):
+        monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+    monkeypatch.setattr(fdtd_fused, "route_tiled", lambda *a: True)
+    monkeypatch.setattr(fdtd_fused, "TILED_SINGLE_MIN_CELLS", 0)
+    res, mom = simulate_moments_sharded(p, b, r, pl, lix, liy, mesh, nxp,
+                                        nyp, halo=8)
+    assert set(calls) == {"sharded_round"}
+    _equal(_assembled(p, res, mom), ref, SIM + MOMENTS)
+
+
 @pytest.mark.parametrize("band", [None, 5], ids=["B5", "B6"])
 def test_listener_at_shard_corner(room, band):
     """The listener 2 cells from the corner of four shards: its ghost copies

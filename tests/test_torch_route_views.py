@@ -6,9 +6,10 @@ B3 + B4 pass a view, then one assembly of every view.
 Its published rows or grids and its ``get_output`` values are held to the
 benchmark's plain reference (``benchmark/reference.py``) by the benchmark's
 own comparison (``benchmark/check.py``) at the benchmark's 10 m, 275 Hz
-stand-in, on cells and grids publish; and the route's ``route.passes`` and
-``route.views`` counters and ``view`` spans are read on the tiled route and
-on the batched one."""
+stand-in, on cells and grids publish; and the route's ``route.passes``,
+``route.tiled_passes`` and ``route.views`` counters and ``view`` spans are
+read on the tiled route and on the batched one, and with the single-listener
+rule applied as on the card."""
 
 import json
 import os
@@ -70,9 +71,22 @@ def test_four_tiled_views_equal_the_plain_reference(tiled, publish):
             "fields_gap": 0.0, "params_gap": 0.0, "outputs_gap": 0.0}
 
 
-def _context(listeners):
+@pytest.fixture
+def card_rule(monkeypatch):
+    """The single-listener rule as the card applies it, from 0 cells: every
+    float32 pass of one view goes to B3 + B4 (in several windows)."""
+    monkeypatch.setattr(fdtd_fused, "TILED_SINGLE_MIN_CELLS", 0)
+    monkeypatch.setattr(fdtd_fused, "_single_tiled",
+                        lambda params, beta, state_dtype: fdtd_fused
+                        .route_tiled(params.nx * params.ny, 1, state_dtype,
+                                     True))
+    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
+    monkeypatch.setattr(fdtd_tiled, "HALO", 4)
+
+
+def _context(listeners, precision="f32"):
     ctx = pv.Context(pv.PlaneverbConfig(6.0, 6.0, 275), publish="cells",
-                     device="cpu")
+                     precision=precision, device="cpu")
     ctx.geometry.add(pv.AABB(2.0, 4.0, 1.0, 0.5, 0.9))
     ctx.emissions.emit(4.5, 0.0, 3.0)
     if len(listeners) == 1:
@@ -101,6 +115,8 @@ def test_route_counts_its_passes_and_views(request, route, views, passes,
         rec = profiling.steps()[-1]
         assert rec.counters["route.passes"] == passes
         assert rec.counters["route.views"] == views
+        assert rec.counters.get("route.tiled_passes", 0) == (
+            passes if route == "tiled" else 0)
         assert rec.span_count("view") == spans
         assert rec.span_count("solver") == 2 * passes
         views_at = [s for s in rec.spans if s[0] == "view"]
@@ -110,6 +126,25 @@ def test_route_counts_its_passes_and_views(request, route, views, passes,
                       and start <= s[2] and s[2] + s[3] <= start + dur]
             assert [s[0] for s in inside] == ["solver", "solver"]
             assert own == dur - sum(s[3] for s in inside)
+
+
+@pytest.mark.parametrize("rule,views,precision,tiled_passes", [
+    (True, 1, "f32", 1), (True, 1, "bf16", 0), (True, 4, "f32", 0),
+    (False, 1, "f32", 0)])
+def test_single_listener_rule_counts_its_tiled_passes(
+        request, rule, views, precision, tiled_passes):
+    """With the single-listener rule applied as on the card, one float32
+    view counts one B3 + B4 pass a step in ``route.tiled_passes``; a bf16
+    view, four views (one batched B1 pass) and the CPU's own rule none."""
+    if rule:
+        request.getfixturevalue("card_rule")
+    ctx = _context(LISTENERS[:views], precision)
+    for _ in range(2):
+        ctx.step()
+        rec = profiling.steps()[-1]
+        assert rec.counters["route.passes"] == 1
+        assert rec.counters.get("route.tiled_passes", 0) == tiled_passes
+        assert rec.span_count("solver") == 2
 
 
 def test_view_spans_reach_the_trace(tiled, tmp_path):

@@ -175,8 +175,11 @@ def test_other_devices_raise():
 
 
 def test_routing_threshold(monkeypatch):
-    """The headline (192^2) stays on B1 + B2; 459^2 and 964^2 go tiled;
-    pipeline_auto follows TILED_MIN_CELLS on the CPU too."""
+    """By TILED_MIN_CELLS, the rule of the CPU, of batches and of bf16
+    passes, the headline (192^2) stays on B1 + B2 and 459^2 and 964^2 go
+    tiled (on the card one float32 listener goes tiled from
+    TILED_SINGLE_MIN_CELLS: test_route_tiled_rule); pipeline_auto follows
+    TILED_MIN_CELLS on the CPU, the two routes bit-equal."""
     cells = {s: tcfg.compute_grid_params(tcfg.PlaneverbConfig(s, s, 750))
              for s in (25.0, 60.0, 126.0)}
     assert not fdtd_fused._use_tiled(cells[25.0])
@@ -200,6 +203,63 @@ def test_routing_threshold(monkeypatch):
     assert calls == [p]
     for a, g in zip((*untiled[0], *untiled[1]), (*tiled[0], *tiled[1])):
         assert torch.equal(a, g)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+HEADLINE = 192 * 192
+SINGLE = fdtd_fused.TILED_SINGLE_MIN_CELLS
+
+
+@pytest.mark.parametrize("cells,listeners,dtype,card,tiled", [
+    (HEADLINE, 1, F32, True, True),
+    (SINGLE, 1, F32, True, True),
+    (SINGLE - 1, 1, F32, True, False),       # under the threshold: B1
+    (HEADLINE, 1, BF16, True, False),        # the tiled route is float32
+    (HEADLINE, 4, F32, True, False),         # a batch: one batched B1
+    (HEADLINE, 1, F32, False, False),        # the CPU: TILED_MIN_CELLS
+    (HEADLINE + 1, 1, F32, False, True),
+    (459 * 459, 4, F32, True, True),         # above it: always tiled
+    (459 * 459, 1, BF16, True, True),
+], ids=["headline", "threshold", "under", "bf16", "batch", "cpu",
+        "cpu-above", "batch-above", "bf16-above"])
+def test_route_tiled_rule(cells, listeners, dtype, card, tiled):
+    """One float32 listener on the card takes B3 + B4 from
+    TILED_SINGLE_MIN_CELLS; everything else keeps TILED_MIN_CELLS."""
+    assert 0 < SINGLE <= fdtd_fused.TILED_MIN_CELLS
+    assert fdtd_fused.route_tiled(cells, listeners, dtype, card) is tiled
+
+
+def test_single_listener_rule_leaves_batches_alone(monkeypatch):
+    """With the rule sending every pass to B3 + B4, pipeline_auto and
+    simulate_auto go tiled, while pipeline_auto_batch and ops/batch.py's
+    batched branch keep the batched B1 under TILED_MIN_CELLS."""
+    from planeverb_tpu_torch.ops import batch as tbatch
+
+    p, arrays, (lix, liy) = _setup(19)
+    b, r, pl = fields_from_numpy(*arrays, device="cpu")
+    calls = []
+
+    def spy(name):
+        real = getattr(fdtd_tiled, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(fdtd_tiled, name, wrapped)
+
+    spy("fdtd_sim_tiled")
+    spy("simulate_moments_tiled")
+    monkeypatch.setattr(fdtd_fused, "route_tiled", lambda *a: True)
+    cells = [(lix, liy), (lix - 2, liy + 1)]
+    out = fdtd_fused.pipeline_auto_batch(p, b, r, pl, cells, 0.02,
+                                         [(5.0, 5.0), (4.0, 5.5)])
+    res = tbatch.simulate_listeners_auto(p, b, r, pl, [lix, lix - 2],
+                                         [liy, liy + 1])
+    assert calls == [] and out.occlusion.shape[0] == res.onset.shape[0] == 2
+    fdtd_fused.simulate_auto(p, b, r, pl, lix, liy)
+    fdtd_fused.pipeline_auto(p, b, r, pl, lix, liy, 0.02, 5.0, 5.0)
+    assert calls == ["fdtd_sim_tiled", "simulate_moments_tiled",
+                     "fdtd_sim_tiled"]
 
 
 def test_pick_tile():
