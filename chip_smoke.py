@@ -32,11 +32,12 @@ line per phase:
      spills, the clusters of B1's cluster mode the card holds at once);
   3. B1 ``fdtd_sim`` against its plain PyTorch version on the card, at the
      headline workload (HugeRoom, 25 m at 750 Hz: 192 x 192 cells x 1187
-     steps), in its cluster mode (one launch a pass) and its per-step mode
-     (``fdtd_sim_per_step``), timed in turns, also with the listener on a
-     seam between two blocks' strips, and on grids whose strips start
-     mid-row (SmallRoom at 275 Hz, a thin open field) in float32 and bf16,
-     with listeners at and around a block's first cell;
+     steps; one launch a pass, a thread-block cluster a listener), timed,
+     also with the listener on a seam between two blocks' strips, and on
+     grids whose strips start mid-row (SmallRoom at 275 Hz, a thin open
+     field) in float32 and bf16, with listeners at and around a block's
+     first cell; and its refusal of a grid one row above the cluster's
+     capacity;
   4. B2 ``rt60_moments`` (csrc/moments.cu) against its plain version,
      bit for bit: on that recording, on a 29 x 29 recording of 37 steps
      (rows not 16-byte aligned, a short last chunk; and a view starting
@@ -44,13 +45,10 @@ line per phase:
      (``rt60_moments_batch``) and on one table over the 2x2 and 4x1
      meshes' shards (``rt60_moments_many``, one launch); its device times
      with the host enqueue hidden behind a sleep kernel: back to back,
-     right after B1 and after an L2 flush, in turns against the
-     thread-a-cell design it replaced, bf16, B = 4 and the 2x2 shards in
-     one table against four launches; the probe's designs (the kernel,
-     thread-a-cell, the logarithms spread over a 128-thread block) in its
-     modes (everything, no logarithms, no loads); and a logarithm's
-     instructions counted in the SASS (cuobjdump) with the floor their
-     instruction slots set;
+     right after B1 and after an L2 flush, bf16, B = 4 and the 2x2 shards
+     in one table against four launches; the probe's modes (everything,
+     no logarithms, no loads); and a logarithm's instructions counted in
+     the SASS (cuobjdump) with the floor their instruction slots set;
   5. the engine's main path: ``Context(device="cuda")`` at the headline
      size, three emitters, five ``step()`` calls (one float32 listener:
      B3 + B4 a step, ``fdtd_fused.route_tiled``), with the kernels' launch
@@ -59,12 +57,11 @@ line per phase:
      grids held to the card's at the golden-scene tolerances;
   7. B3 ``fdtd_sim_tiled`` (the large world's simulation: k steps a round
      over tiles, the whole pass in one cooperative launch) against its
-     plain version, itself with the accumulators in global memory (its
-     mode above ~1100^2 cells) and B1 (kernel against kernel) at 459^2
-     (60 m at 750 Hz, HugeRoom, listener at the center) and 964^2 (126 m),
-     timed in turns against B1's per-step mode (its ratio), the plain
-     version timed at 459^2 only; then rigid outer walls on an open 60 m
-     field against its plain version and B1;
+     plain version and to itself with the accumulators in global memory
+     (its mode above ~1100^2 cells) at 459^2 (60 m at 750 Hz, HugeRoom,
+     listener at the center) and 964^2 (126 m), timed, the plain version
+     timed at 459^2 only; then rigid outer walls on an open 60 m field
+     against its plain version;
   8. B4 ``rt60_moments_tiled`` against its plain version and against B2 on
      B3's recordings at 459^2 and 964^2, with times and GB/s;
   9. the large-world engine: ``Context`` at 126 m with ``publish="cells"``,
@@ -74,7 +71,7 @@ line per phase:
      peak device memory;
  10. the route's crossover for one float32 listener: B1 + B2 against
      B3 + B4 (CUDA events from idle, host enqueue and B1's fold included)
-     at 65^2, 96^2, 128^2, 160^2, 192^2, 261^2, 459^2 and 964^2, the two
+     at 65^2, 96^2, 128^2, 160^2 and 192^2 (the most B1 holds), the two
      routes' outputs bit-equal; B4 against B2 on the same recording; and
      the route ``fdtd_fused.route_tiled`` takes at each size: the
      measurement ``fdtd_fused.TILED_SINGLE_MIN_CELLS`` rests on (with
@@ -195,7 +192,8 @@ line per phase:
      and 4 positions; the overlap split on (2, 1) and (4, 1); a weak pair;
      the plain-torch wide solver once), every row printed with B5's
      launches a pass, each fused row's pass rerun and held bit for bit to
-     B1 on [:nx, :ny], the wide pass and ``simulate_sharded`` (275 Hz)
+     one device's pass (``simulate_auto``) on [:nx, :ny], the wide pass
+     and ``simulate_sharded`` (275 Hz)
      held to B1 at REL_TOL with the onset equal; two processes on the one
      card (this script started twice with a hidden worker flag,
      ``init_distributed(backend="gloo")``, two positions each of a 2x2
@@ -235,9 +233,8 @@ free-field cache (``core/free_grid.py::clear_cache``) before that Context.
 Every main path's step is followed by one more with the card's launches of
 each kernel counted (``kernels.device_launches``, zeroed just before it).
 Then a JSON line with each kernel's (and mode's) launches on its main
-path (B1's per-step mode: over phase 3's timed headline run, whose times
-it reports), its launches on the card in one step of that path, error,
-times and bound, and as the last line
+path, its launches on the card in one step of that path, error, times and
+bound, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line. It needs a CUDA card and the repository
 beside it; it imports neither jax nor planeverb_tpu.
@@ -276,9 +273,9 @@ XL = 126.0
 XL_EMITTERS = [(66.0, 63.0), (58.0, 59.0), (63.0, 72.0)]
 XL_STEPS = 3
 # the route's crossover, HugeRoom at 750 Hz: 8.4 m (65^2 cells), 12.5 m
-# (96^2), 16.7 m (128^2), 20.8 m (160^2), 25 m (the headline, 192^2), 34 m
-# (261^2), 60 m and 126 m; 1187 steps up to 25 m
-CROSSOVER = (8.4, 12.5, 16.7, 20.8, 25.0, 34.0, 60.0, 126.0)
+# (96^2), 16.7 m (128^2), 20.8 m (160^2) and 25 m (the headline, 192^2, the
+# most B1 holds); 1187 steps
+CROSSOVER = (8.4, 12.5, 16.7, 20.8, 25.0)
 CROSSOVER_REPS = 5
 # the sharded engine (phases 11-13): meshes of the one card at the headline,
 # the round length (the Context's default on 96^2 shards), B6's forced tile
@@ -651,9 +648,8 @@ ROW_FIELDS = ("occlusion", "wet_gain", "rt60", "lowpass", "direction",
 
 
 # kernel names as they appear in ptxas's mangled entry names
-_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel", "rt60_moments_kernel",
-            "rt60_moments_direct_kernel", "rt60_moments_spread_kernel",
-            "fdtd_tiled_kernel", "rt60_moments_tiled_kernel", "round_kernel",
+_KERNELS = ("fdtd_cluster_kernel", "rt60_moments_kernel", "fdtd_tiled_kernel",
+            "rt60_moments_tiled_kernel", "round_kernel",
             "biquad_scan_kernel", "reverb_scan_kernel",
             "dsp_chain_probe_kernel", "analysis_assemble_kernel",
             "analysis_directions_kernel")
@@ -720,8 +716,7 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
     37 steps (rows not 16-byte aligned, a short last chunk), a bf16
     recording, four listeners' recordings and one table over the 2x2 and
     4x1 meshes' shards; its device times warm (right after B1) and cold
-    (after an L2 flush), against the thread-a-cell design it replaced in
-    turns, the probe's designs and modes, and the SASS count of a
+    (after an L2 flush), the probe's modes, and the SASS count of a
     logarithm. Returns the numbers the kernels line takes."""
     import torch
 
@@ -805,11 +800,6 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
             rel, diff = _rel(a, b)
             old_rel, old_diff = table_err.get(name, (0.0, 0.0))
             table_err[name] = (max(rel, old_rel), max(diff, old_diff))
-    # the probe's other designs, everything on
-    for design in fdtd_fused.MOMENTS_PROBE_DESIGNS[1:]:
-        got = fdtd_fused.rt60_moments_probe(p, [rec], [onset], design)
-        torch.cuda.synchronize()
-        bits[f"probe {design}"] = equal(p, got, [rec], [onset])
     _require(all(bits.values()), f"B2 not bit-equal: {bits}")
     del got
 
@@ -826,9 +816,6 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
         p, beta, refl, pulse, lix, liy))
     out["cold_ms"] = _device_ms(b2, 10, before=lambda: flush.zero_())
     out["call_ms"] = _cuda_ms(b2, 10)      # host enqueue included
-    out["vs_direct"] = _device_pair(
-        b2, lambda: fdtd_fused.rt60_moments_probe(p, [rec], [onset],
-                                                  "direct"), 10)
     out["plain_ms"] = _once(lambda: ref(p, rec, onset))[0]
     out["bf16_ms"] = _device_ms(lambda: fdtd_fused.rt60_moments(
         p, hres.pressure, hres.onset), 10)
@@ -852,32 +839,23 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
         before=lambda: flush.zero_())
     out["table_plain_ms"] = _once(
         lambda: fdtd_fused.rt60_moments_many_reference(p, *mesh22))[0]
-    # the probe: each design in each mode, float32 and bf16
+    # the probe: each mode, float32 and bf16
     probe = {}
     for dt, (prec, pons) in (("f32", (rec, onset)),
                              ("bf16", (hres.pressure, hres.onset))):
-        for design in fdtd_fused.MOMENTS_PROBE_DESIGNS:
-            times = []
-            for mode in fdtd_fused.MOMENTS_PROBE_MODES:
-                times.append(_device_ms(
-                    lambda: fdtd_fused.rt60_moments_probe(
-                        p, [prec], [pons], design, mode), 6))
-            probe[f"{dt} {design}"] = "/".join(f"{t:.4f}" for t in times)
+        times = [_device_ms(lambda: fdtd_fused.rt60_moments_probe(
+            p, [prec], [pons], mode), 6)
+            for mode in fdtd_fused.MOMENTS_PROBE_MODES]
+        probe[dt] = "/".join(f"{t:.4f}" for t in times)
     del bres, hres, srecs, sons, flush
     torch.cuda.empty_cache()
     # the SASS: a logarithm's instructions, the main loop's body (one chunk
     # of the aligned rows, its shortest loop) less the same loop without
-    # logarithms, over the chunk's rows; the direct design's loop likewise
-    loops = _sass_loops(kernels, lib_path, (
-        "rt60_moments_kernelIfLi0E", "rt60_moments_kernelIfLi1E",
-        "rt60_moments_direct_kernelIfLi0E",
-        "rt60_moments_direct_kernelIfLi1E"))
+    # logarithms, over the chunk's rows
+    names = ("rt60_moments_kernelIfLi0E", "rt60_moments_kernelIfLi1E")
+    loops = _sass_loops(kernels, lib_path, names)
     chunk = fdtd_fused.MOMENTS_CHUNK
-    body, body_nolog, dbody, dbody_nolog = (
-        min(loops[k]) for k in ("rt60_moments_kernelIfLi0E",
-                                "rt60_moments_kernelIfLi1E",
-                                "rt60_moments_direct_kernelIfLi0E",
-                                "rt60_moments_direct_kernelIfLi1E"))
+    body, body_nolog = (min(loops[k]) for k in names)
     per_log = (body - body_nolog) / chunk
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -898,10 +876,9 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
           f"float32 {out['ms']:.4f} ms back to back, {out['warm_ms']:.4f} "
           f"right after B1, {out['cold_ms']:.4f} after an L2 flush (byte "
           f"bound {bound:.4f}, {bound / out['ms']:.0%}); with the host "
-          f"enqueue {out['call_ms']:.4f}; in turns with the thread-a-cell "
-          f"design {out['vs_direct'][0]:.4f} vs {out['vs_direct'][1]:.4f}; "
-          f"bf16 {out['bf16_ms']:.4f} / cold {out['bf16_cold_ms']:.4f} (byte "
-          f"bound {_moments_bound(p, rec_bytes=2)[0]:.4f}); B = 4 "
+          f"enqueue {out['call_ms']:.4f}; bf16 {out['bf16_ms']:.4f} / cold "
+          f"{out['bf16_cold_ms']:.4f} (byte bound "
+          f"{_moments_bound(p, rec_bytes=2)[0]:.4f}); B = 4 "
           f"{out['batch_ms']:.4f} / cold {out['batch_cold_ms']:.4f} (bound "
           f"{_moments_bound(p, 4)[0]:.4f}); the 2x2 shards in one table "
           f"{out['table_ms']:.4f} / cold {out['table_cold_ms']:.4f} vs four "
@@ -912,9 +889,8 @@ def _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix, liy,
     print(f"phase 4 B2 probe, device ms full/no_log/no_load: {probe}; SASS: "
           f"main loop {body} instructions a chunk of {chunk} rows ({body_nolog}"
           f" without logarithms: {per_log:.1f} a logarithm, fmax and scale "
-          f"included), the thread-a-cell loop {dbody} ({dbody_nolog}) for 8; "
-          f"instruction-slot floor at {mhz:.0f} MHz on {sms} SMs: the "
-          f"logarithms {out['log_floor_ms']:.4f} ms, the main loop "
+          f"included); instruction-slot floor at {mhz:.0f} MHz on {sms} SMs: "
+          f"the logarithms {out['log_floor_ms']:.4f} ms, the main loop "
           f"{out['loop_floor_ms']:.4f} ms", flush=True)
     return out
 
@@ -1291,14 +1267,15 @@ def _scaling_phase(pv, card, label, root):
                   flush=True)
         fused_rows += rows
 
-    # -- each fused row's pass, rerun, bit-equal to B1 on one device
+    # -- each fused row's pass, rerun, bit-equal to one device's pass (the
+    # weak rows' worlds are above what B1 holds)
     singles = {}
     for r in fused_rows:
         world = (hl if r["mode"] == "strong" else
                  _weak_inputs(pv, voxelize, gaussian_pulse, q, r, dev))
         key = (r["mode"], *r["grid"])
         if key not in singles:
-            singles[key] = fdtd_fused.fdtd_sim(*world)[0]
+            singles[key] = fdtd_fused.simulate_auto(*world)
         mesh = parallel.grid_mesh(one_card[:r["devices"]], tuple(r["mesh"]))
         got = parallel.simulate_sharded_fused(
             *_padded_args(parallel, world, mesh), halo=r["halo"],
@@ -1308,12 +1285,12 @@ def _scaling_phase(pv, card, label, root):
                                                  :single.onset.shape[1]],
                                  getattr(single, n))
                      for n in single._fields),
-                 f"fused row {r} differs from B1")
+                 f"fused row {r} differs from one device's pass")
         del got
     del singles
     torch.cuda.empty_cache()
     print(f"phase 22 every fused row's pass ({len(fused_rows)}) bit-equal to "
-          f"B1 on one card on [:nx, :ny]", flush=True)
+          f"one device's pass (simulate_auto) on [:nx, :ny]", flush=True)
 
     # -- the plain-torch wide solver once, and the per-step solver at 275 Hz
     fdtd_fused.reset_launch_counts()
@@ -3322,12 +3299,11 @@ def _crossover_phase(pv, dev, label) -> None:
         del tres, tmom
         routed = ("B3 + B4" if fdtd_fused.route_tiled(
             q.nx * q.ny, 1, torch.float32, True) else "B1 + B2")
-        mode = fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1)
         print(f"phase 10 crossover {qshape} ({q.nx * q.ny} cells, one "
               f"float32 listener routed to {routed} by route_tiled: "
               f"TILED_SINGLE_MIN_CELLS = "
               f"{fdtd_fused.TILED_SINGLE_MIN_CELLS}, TILED_MIN_CELLS = "
-              f"{fdtd_fused.TILED_MIN_CELLS}): B1 ({mode} mode) + B2 "
+              f"{fdtd_fused.TILED_MIN_CELLS}): B1 + B2 "
               f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms, ratio "
               f"{tiled_ms / fused_ms:.3f}, bit-equal; on B3's recording B4 "
               f"{b4_ms:.3f} ms, B2 {b2_ms:.3f} ms, ratio "
@@ -3418,21 +3394,16 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # -- 3. B1 vs its plain version: the cluster mode (one launch a pass,
-    # the headline's mode) and the per-step mode, in turns in one run, both
-    # bit-equal to the plain version; then a listener on a strip seam
-    _require(fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, 1) == "cluster",
-             "the headline must take B1's cluster mode")
+    # -- 3. B1 vs its plain version (one launch a pass, a cluster a
+    # listener), bit-equal; then a listener on a strip seam
+    _require(fdtd_fused.b1_fits(p.nx, p.ny), "B1 must hold the headline")
     kres, kacc = fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy)
-    sres, sacc = fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy)
     rres, racc = fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse,
                                                lix, liy)
     torch.cuda.synchronize()
-    b1, b1_bits = _compare(kres, kacc, rres, racc, "B1 cluster vs plain")
-    b1s, b1s_bits = _compare(sres, sacc, rres, racc, "B1 per-step vs plain")
-    _require(b1_bits and b1s_bits, "B1 not bit-equal to its plain version")
+    b1, b1_bits = _compare(kres, kacc, rres, racc, "B1 vs plain")
+    _require(b1_bits, "B1 not bit-equal to its plain version")
     _require(torch.isfinite(kres.pressure).all(), "B1 recording not finite")
-    del sres, sacc
     # a strip seam: block rank r of the cluster owns the cells from
     # r * ceil(nx * ny / 16); the listener on the first row of rank 1 and on
     # the last row of rank 0
@@ -3440,22 +3411,19 @@ def main() -> int:
     seam = {}
     for cx in (strip_rows, strip_rows - 1):
         c = fdtd_fused.fdtd_sim(p, beta, refl, pulse, cx, liy)
-        s_ = fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, cx, liy)
         r_ = fdtd_fused.fdtd_sim_reference(p, beta, refl, pulse, cx, liy)
         torch.cuda.synchronize()
         _, bits_c = _compare(c[0], c[1], r_[0], r_[1],
-                             f"B1 cluster, listener ({cx}, {liy})")
-        _, bits_s = _compare(s_[0], s_[1], r_[0], r_[1],
-                             f"B1 per-step, listener ({cx}, {liy})")
-        _require(bits_c and bits_s, f"seam listener ({cx}, {liy})")
-        seam[(cx, liy)] = bits_c and bits_s
-        del c, s_, r_
+                             f"B1, listener ({cx}, {liy})")
+        _require(bits_c, f"seam listener ({cx}, {liy})")
+        seam[(cx, liy)] = bits_c
+        del c, r_
     # blocks whose strips start mid-row (ceil(nx * ny / 16) % ny != 0, as on
     # most room sizes): SmallRoom 10 m at 275 Hz and a thin open 60 x 6 m
     # field at 750 Hz (no walls: the pulse reaches every strip), float32 and
     # bf16, listeners at block rank 8's first cell, the cell before it and
-    # the cell above it; the batched cluster pass (a cluster a listener),
-    # per-step passes and the plain version all bit-equal
+    # the cell above it; the batched pass (a cluster a listener) and the
+    # plain version bit-equal
     midrow = {}
     for mname, mcfg in (("SmallRoom", pv.PlaneverbConfig(10.0, 10.0, 275)),
                         ("open", pv.PlaneverbConfig(60.0, 6.0, 750))):
@@ -3471,69 +3439,54 @@ def main() -> int:
         _require(-(-mq.nx * mq.ny // 16) % mq.ny != 0
                  and mcells[1][1] != 0, f"{mname}: strips start at a row")
         for dt in (torch.float32, torch.bfloat16):
-            _require(fdtd_fused.b1_mode(mq.nx, mq.ny, dt, len(mcells))
-                     == "cluster", f"{mname} must take the cluster mode")
+            _require(fdtd_fused.b1_fits(mq.nx, mq.ny),
+                     f"B1 must hold {mname}")
             c = fdtd_fused.fdtd_sim_batch(mq, mb, mr, mpulse, mcells,
                                           state_dtype=dt)
             r_ = fdtd_fused.fdtd_sim_batch_reference(mq, mb, mr, mpulse,
                                                      mcells, state_dtype=dt)
             torch.cuda.synchronize()
-            what = f"B1 cluster {mname} {mq.nx}x{mq.ny} {dt}"
+            what = f"B1 {mname} {mq.nx}x{mq.ny} {dt}"
             _, bits = _compare(c[0], c[1], r_[0], r_[1], what)
             _require(bits, f"{what} listeners {mcells}: not bit-equal")
             _require(torch.isfinite(c[0].pressure.float()).all()
                      and (c[0].pressure != 0).any(dim=(1, 2, 3)).all(),
                      f"{what}: recording not finite or silent")
-            for i, (cx, cy) in enumerate(mcells):
-                s_ = fdtd_fused.fdtd_sim_per_step(mq, mb, mr, mpulse, cx, cy,
-                                                  state_dtype=dt)
-                torch.cuda.synchronize()
-                _require(all(torch.equal(a, g[i]) for a, g in zip(
-                    (*s_[0], *s_[1]), (*r_[0], *r_[1]))),
-                    f"B1 per-step {mname} {dt} listener ({cx}, {cy})")
             midrow[f"{mname} {mq.nx}x{mq.ny} {str(dt)[6:]}"] = mcells
-            del c, r_, s_
-    # device launches of one pass in each mode, then the two modes timed
-    # in turns: the per-step entry's launches count this run's calls
+            del c, r_
+    # one row above what a cluster holds: the card refuses it, naming the
+    # tiled kernels
+    over = dataclasses.replace(p, grid_x=p.nx, grid_y=p.ny - 1)
+    over_field = torch.ones((over.nx, over.ny), device=dev)
+    try:
+        fdtd_fused.fdtd_sim(over, over_field, over_field * 0, pulse, 0, 0)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    _require("fdtd_sim_tiled" in refused,
+             f"B1 at {over.nx}x{over.ny} not refused: {refused!r}")
+    # device launches of one pass, then its time
     cluster_pass = _device_pass(kernels, lambda: fdtd_fused.fdtd_sim(
         p, beta, refl, pulse, lix, liy))
-    step_pass = _device_pass(kernels, lambda: fdtd_fused.fdtd_sim_per_step(
-        p, beta, refl, pulse, lix, liy))
     _require(cluster_pass == {"fdtd_cluster_kernel": 1},
-             f"cluster B1 pass device launches {cluster_pass}")
-    _require(step_pass == {"fdtd_step_kernel": p.response_length},
-             f"per-step B1 pass device launches {step_pass}")
-    fdtd_fused.fdtd_sim_per_step.launches = 0
-    b1_ms, b1_step_ms = _time_pair(
-        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy),
-        lambda: fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy),
-        reps=6)
-    b1_step_launches = fdtd_fused.fdtd_sim_per_step.launches
-    b1_enq, b1_step_enq = _enqueue_pair(
-        lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix, liy),
-        lambda: fdtd_fused.fdtd_sim_per_step(p, beta, refl, pulse, lix, liy),
-        reps=6)
+             f"B1 pass device launches {cluster_pass}")
+    b1_ms = _cuda_ms(lambda: fdtd_fused.fdtd_sim(p, beta, refl, pulse, lix,
+                                                 liy), 6)
     b1_plain_ms = _once(lambda: fdtd_fused.fdtd_sim_reference(
         p, beta, refl, pulse, lix, liy))[0]
-    print(f"phase 3 B1 fdtd_sim {shape}: cluster mode (device launches a "
-          f"pass {cluster_pass}) and per-step mode ({step_pass}) vs plain "
-          f"max rel "
+    print(f"phase 3 B1 fdtd_sim {shape} (device launches a pass "
+          f"{cluster_pass}) vs plain max rel "
           + ", ".join(f"{k} {v[0]:.3g}" for k, v in b1.items())
-          + f" / " + ", ".join(f"{k} {v[0]:.3g}" for k, v in b1s.items())
-          + f" (bound {REL_TOL:g}); onset equal; bit-equal {b1_bits} / "
-          f"{b1s_bits}; listener on the strip seam (strips of {strip_rows} "
-          f"rows) {seam} bit-equal in both modes; strips starting "
-          f"mid-row, listeners at and around block 8's first cell, bit-equal "
-          f"batched cluster / per-step / plain: {midrow}; cluster "
-          f"{b1_ms:.3f} ms vs "
-          f"per-step {b1_step_ms:.3f} ms (ratio {b1_ms / b1_step_ms:.3f}, "
-          f"medians of 6 in turns), host enqueue {b1_enq:.3f} vs "
-          f"{b1_step_enq:.3f} ms; plain {b1_plain_ms:.3f} ms ({label})",
-          flush=True)
+          + f" (bound {REL_TOL:g}); onset equal; bit-equal {b1_bits}; "
+          f"listener on the strip seam (strips of {strip_rows} rows) {seam} "
+          f"bit-equal; strips starting mid-row, listeners at and around "
+          f"block 8's first cell, batched pass bit-equal to plain: {midrow}; "
+          f"{over.nx}x{over.ny} refused ({refused}); {b1_ms:.3f} ms (median "
+          f"of 6); plain {b1_plain_ms:.3f} ms ({label})", flush=True)
 
     # -- 4. B2 vs its plain version on the kernel's recording and the other
-    # shapes the engine gives it; device times, the probe's designs and
-    # modes, and the SASS count of a logarithm
+    # shapes the engine gives it; device times, the probe's modes, and the
+    # SASS count of a logarithm
     b2r = _moments_phase(pv, kernels, lib_path, p, beta, refl, pulse, lix,
                          liy, kres, label)
     b2, b2_ms, b2_plain_ms = b2r["err"], b2r["ms"], b2r["plain_ms"]
@@ -3630,8 +3583,7 @@ def main() -> int:
     del ctx, cpu, kres, rres, kacc, racc
     torch.cuda.empty_cache()
 
-    # -- 7. B3 vs its plain version and vs B1 (459^2, 964^2), timed against
-    # B1's per-step mode (the mode B1 takes at these sizes); B3 with its
+    # -- 7. B3 vs its plain version (459^2, 964^2), timed; B3 with its
     # accumulators forced to global memory (the kernel's mode above ~1100^2)
     # against the main path's; then rigid outer walls
     t_phase = time.perf_counter()
@@ -3642,15 +3594,8 @@ def main() -> int:
         q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
                                               size, dev)
         qshape = f"{q.nx}x{q.ny}x{q.response_length}"
-        _require(fdtd_fused.b1_mode(q.nx, q.ny, torch.float32, 1) == "step",
-                 f"B1 at {qshape} must take its per-step mode")
         k3res, k3acc = fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy)
-        k1res, k1acc = fdtd_fused.fdtd_sim(q, qb, qr, qp, qx, qy)
-        torch.cuda.synchronize()
-        vs_b1, b1_bits3 = _compare(k3res, k3acc, k1res, k1acc,
-                                   f"B3 vs B1 {qshape}")
-        del k1res, k1acc
-        row = {"vs_b1": vs_b1, "b1_bits": b1_bits3}
+        row = {}
         # the plain version at both sizes (the main path runs B3 at 964^2);
         # it is timed at 459^2 only
         r3res, r3acc = fdtd_tiled.fdtd_sim_tiled_reference(
@@ -3658,8 +3603,7 @@ def main() -> int:
         torch.cuda.synchronize()
         row["vs_plain"], row["plain_bits"] = _compare(
             k3res, k3acc, r3res, r3acc, f"B3 vs plain {qshape}")
-        _require(b1_bits3 and row["plain_bits"],
-                 f"B3 not bit-equal at {qshape}")
+        _require(row["plain_bits"], f"B3 not bit-equal at {qshape}")
         del r3res, r3acc
         if size == LARGE:
             row["plain_ms"] = _once(
@@ -3682,10 +3626,8 @@ def main() -> int:
             kernels, lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy))
         _require(row["device_pass"] == {"fdtd_tiled_kernel": 1},
                  f"B3 pass device launches {row['device_pass']}")
-        row["ms"], row["b1_ms"] = _time_pair(
-            lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy),
-            lambda: fdtd_fused.fdtd_sim_per_step(q, qb, qr, qp, qx, qy),
-            reps=3)
+        row["ms"] = _cuda_ms(
+            lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy), 3)
         row["global_ms"] = _cuda_ms(b3_global, 3)
         torch.cuda.synchronize()
         _require(torch.isfinite(k3res.pressure).all(),
@@ -3694,14 +3636,11 @@ def main() -> int:
               f"{fdtd_tiled.HALO}: the whole pass in one cooperative launch, "
               f"device launches {row['device_pass']}; with the accumulators "
               f"in global memory bit-equal, {row['global_ms']:.3f} ms): vs "
-              f"B1 max rel "
-              + ", ".join(f"{k} {v[0]:.3g}" for k, v in vs_b1.items())
-              + f", bit-equal {b1_bits3}; vs plain max rel "
+              f"plain max rel "
               + ", ".join(f"{k} {v[0]:.3g}" for k, v in row["vs_plain"].items())
               + f", bit-equal {row['plain_bits']}"
-              + f" (bound {REL_TOL:g}, onset equal); B3 {row['ms']:.3f} ms, "
-              f"B1 per-step {row['b1_ms']:.3f} ms, ratio "
-              f"{row['ms'] / row['b1_ms']:.3f} (medians of 3 in turns)"
+              + f" (bound {REL_TOL:g}, onset equal); B3 {row['ms']:.3f} ms "
+              f"(median of 3)"
               + (f", plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
                  else "")
               + f" ({label})", flush=True)
@@ -3709,7 +3648,7 @@ def main() -> int:
         recs[qshape] = (q, k3res)
     # rigid outer walls (grid_boundary_type REFLECTING: the kernel's fold
     # without the edge ABC) on an open 60 m field, where the pulse reaches
-    # the edges: B3 bit-equal to its plain version and to per-step B1
+    # the edges: B3 bit-equal to its plain version
     rq = pv.compute_grid_params(pv.PlaneverbConfig(
         LARGE, LARGE, 750, grid_boundary_type=pv.BoundaryType.REFLECTING))
     rb = torch.ones((rq.nx, rq.ny), dtype=torch.float32, device=dev)
@@ -3720,9 +3659,7 @@ def main() -> int:
     k3 = fdtd_tiled.fdtd_sim_tiled(rq, rb, rr, rp, rx, ry)
     _, rigid_plain = _compare(*k3, *fdtd_tiled.fdtd_sim_tiled_reference(
         rq, rb, rr, rp, rx, ry), f"B3 rigid vs plain {rshape}")
-    _, rigid_b1 = _compare(*k3, *fdtd_fused.fdtd_sim(rq, rb, rr, rp, rx, ry),
-                           f"B3 rigid vs B1 {rshape}")
-    _require(rigid_plain and rigid_b1, f"B3 rigid walls not bit-equal")
+    _require(rigid_plain, "B3 rigid walls not bit-equal")
     absorbing = fdtd_tiled.fdtd_sim_tiled(
         dataclasses.replace(rq, boundary_type=pv.BoundaryType.ABSORBING),
         rb, rr, rp, rx, ry)[0]
@@ -3731,7 +3668,7 @@ def main() -> int:
              "reached the edges")
     del k3, absorbing
     print(f"phase 7 B3 rigid outer walls, open field {rshape}: bit-equal to "
-          f"its plain version and to B1 (per-step) {rigid_plain and rigid_b1}"
+          f"its plain version {rigid_plain}"
           f"; differs from the absorbing edges {rigid_differs}", flush=True)
     print(f"phase 7 seconds: {time.perf_counter() - t_phase:.1f}")
 
@@ -4214,9 +4151,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     vcells = [p.world_to_cell(x, z) for x, z in VIEWS]
     nv = len(vcells)
-    _require(fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, nv) == "cluster"
-             and fdtd_fused.b1_mode(p.nx, p.ny, torch.bfloat16, nv)
-             == "cluster", "batched and bf16 B1 must take the cluster mode")
+    _require(fdtd_fused.b1_fits(p.nx, p.ny), "B1 must hold the headline")
     _require(vcells[0] == (lix, liy), "view 0 is the headline's listener")
     fdtd_fused.reset_launch_counts()
     kres, kacc = fdtd_fused.fdtd_sim_batch(p, beta, refl, pulse, vcells)
@@ -4851,17 +4786,14 @@ def main() -> int:
         return max(v[1] for d in dicts for v in d.values())
 
     # device_launches_per_pass: the kernel's launches on the card in one
-    # step of its main path (one pass; for B1's two modes one headline
-    # pass, for B2 alone the bf16 step), as the C launchers counted them in
+    # step of its main path (one pass; for B1 one headline pass, for B2
+    # alone the bf16 step), as the C launchers counted them in
     # this run. No single PyTorch call computes any of these functions, so
     # every library_ms is null
     print(json.dumps({"kernels": [
         row("fdtd_sim", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
             launches["fdtd_sim"], err_of(b1), b1_ms, b1_plain_ms,
             _sim_bound(p), cluster_pass["fdtd_cluster_kernel"]),
-        row("fdtd_sim per-step", "fdtd_fused.cu", "ops/fdtd_pallas.py:104",
-            b1_step_launches, err_of(b1s), b1_step_ms, b1_plain_ms,
-            _sim_bound(p), step_pass["fdtd_step_kernel"]),
         row("rt60_moments", "moments.cu", "ops/fdtd_pallas.py:246",
             launches["rt60_moments"], err_of(b2), b2_ms, b2_plain_ms,
             _moments_bound(p), h_step["rt60_moments_kernel"]),

@@ -15,14 +15,13 @@ ProjectPlaneverb/src/Context/PvContext.cpp):
 One step on a CUDA device is: voxelize (when the geometry changed) -> the
 simulation and RT60-moments kernels -> parameter assembly and DOA -> the
 publish. The kernels take one of two routes
-(``ops/fdtd_fused.py::pipeline_auto``, by ``route_tiled``): the tiled B3
-and B4 (``csrc/fdtd_tiled.cu``: the whole pass in one cooperative launch,
-k steps a round over tiles spread across every SM, and the moments staged
-in reverse chunks) above ``TILED_MIN_CELLS`` solver cells and, for a
-float32 step on the card, from ``TILED_SINGLE_MIN_CELLS``; otherwise B1
-and B2 (``csrc/fdtd_fused.cu``, ``csrc/moments.cu``: one thread-block
-cluster a listener, one launch a pass). On the CPU the same step runs the
-kernels' plain versions, routed by ``TILED_MIN_CELLS`` alone.
+(``ops/fdtd_fused.py::pipeline_auto``), as ``fdtd_fused.route_tiled``
+decides: the tiled B3 and B4 (``csrc/fdtd_tiled.cu``: the whole pass in one
+cooperative launch, k steps a round over tiles spread across every SM, and
+the moments staged in reverse chunks), or B1 and B2
+(``csrc/fdtd_fused.cu``, ``csrc/moments.cu``: one thread-block cluster a
+listener, one launch a pass). On the CPU the same step runs the kernels'
+plain versions.
 
 With ``mesh=`` the step runs the sharded engine
 (``parallel/solver_fused.py::pipeline_sharded``): the fields are padded to
@@ -63,11 +62,11 @@ Publish modes:
 
 Several listeners (:meth:`Context.set_listener_positions`: split screen,
 multiplayer) run every view in one step and publish them together, with a
-leading [B] axis: up to ``TILED_MIN_CELLS`` cells through the batched B1
-and B2 (``ops/fdtd_fused.py::pipeline_auto_batch``: one B1 launch a step
-and one B2 launch for all views), above it one B3 + B4 pass per view, each
-view's recording freed before the next; on a mesh one sharded pass per
-view. The views' recordings are not published.
+leading [B] axis (``ops/fdtd_fused.py::pipeline_auto_batch``): through the
+batched B1 and B2 (one launch each for all views) or, on the tiled route,
+one B3 + B4 pass per view, each view's recording freed before the next; on
+a mesh one sharded pass per view. The views' recordings are not
+published.
 
 ``precision="bf16"`` keeps B1's wave state and recording in bf16 (the
 accumulators stay float32); the tiled route and the sharded engine run
@@ -192,9 +191,9 @@ class Context:
 
         ``precision="bf16"`` runs B1 with bf16 wave state and recording
         (the JAX engine's half-precision mode; its parameters stay within
-        the bf16 bounds of the float32 engine's, not bit-equal). Grids
-        above ``TILED_MIN_CELLS`` cells run float32 whatever it is; with a
-        mesh it is refused.
+        the bf16 bounds of the float32 engine's, not bit-equal). Passes on
+        the tiled route run float32 whatever it is; with a mesh it is
+        refused.
         """
         config.validate()
         if precision not in ("f32", "bf16"):

@@ -12,7 +12,6 @@ namespace pv {
 // accepted; pv_device_launches (fdtd_fused.cu) reads and resets them.
 enum DeviceKernel : int {
   kFdtdClusterKernel = 0,
-  kFdtdStepKernel,
   kRt60MomentsKernel,
   kFdtdTiledKernel,
   kRt60MomentsTiledKernel,

@@ -1,4 +1,4 @@
-// Fused FDTD simulation (B1) kernels for Hopper.
+// Fused FDTD simulation (B1) kernel for Hopper.
 //
 // B1 `fdtd_sim` replaces planeverb_tpu/ops/fdtd_pallas.py::_kernel, in all
 // its modes: one listener or B of them (`batched=True`), f32 or bf16 wave
@@ -6,15 +6,14 @@
 // (velocities read the pre-injection pressure), records the pre-injection
 // pressure into rec[b, t], and streams the onset (first |p| > thr, +inf
 // sentinel), the source-directivity flux fx/fy += p*v while onset > t -
-// src_dir_n, and the windowed energies e_dry / e_wet / e_total. Two modes,
-// chosen by the caller from the shape before launch (ops/fdtd_fused.py
-// b1_mode):
+// src_dir_n, and the windowed energies e_dry / e_wet / e_total, in one
+// launch a pass, as the TPU kernel keeps the whole field in VMEM for all T
+// steps. It holds fields of at most kClusterCells cells, which is every grid
+// the route sends to B1 (ops/fdtd_fused.py route_tiled); the launcher refuses
+// a larger one, which the tiled kernels (fdtd_tiled.cu) step.
 //
-//   Cluster mode (`cluster`, every field of at most kClusterCells cells,
-//   which is every grid the engine routes to B1): one launch a pass, as the
-//   TPU kernel keeps the whole field in VMEM for all T steps. One
-//   thread-block cluster of kCluster = 16 blocks (a non-portable size) per
-//   listener holds its field in the blocks' shared memory: block `rank`
+//   One thread-block cluster of kCluster = 16 blocks (a non-portable size)
+//   per listener holds its field in the blocks' shared memory: block `rank`
 //   owns the cells [rank * L, rank * L + L) of the row-major field, and its
 //   shared memory holds their beta and six coefficient planes (loaded once
 //   from L2) and p, vx, vy of the two step parities. A thread owns up to
@@ -28,27 +27,18 @@
 //   lies in another block (a strip's edge rows, a block's first cell), the
 //   thread reads that block's step t-1 state through distributed shared
 //   memory and recomputes the neighbour's pre-injection pressure itself
-//   (pressure_at, with the listener's pending injection), so the cluster
-//   barrier is the only one across blocks; it is split into arrive and
-//   wait, with the recording and the accumulators between. The last wait
-//   also keeps every block alive until no block reads its shared memory.
-//   Onset, flux and energies go to global memory once, at the end. Batched
-//   mode is B clusters (blockIdx.y the listener), each reading the shared
-//   field planes from L2.
+//   (cluster_pressure, with the listener's pending injection), so the
+//   cluster barrier is the only one across blocks; it is split into arrive
+//   and wait, with the recording and the accumulators between. The last
+//   wait also keeps every block alive until no block reads its shared
+//   memory. Onset, flux and energies go to global memory once, at the end.
 //
-//   Per-step mode (larger fields): one 2D FDTD timestep per launch, one
-//   thread per cell and listener (blockIdx.z is the listener); the host
-//   enqueues the T launches. The pressure state lives in the recording: step
-//   t reads rec[b, t-1] and adds pulse[t-1] at listener b's cell, and each
-//   thread recomputes the pre-injection pressure of its (i-1, j) and
-//   (i, j-1) neighbours from the old buffers instead of waiting for a second
-//   launch. vx/vy are double-buffered by step parity in `vel`.
-//
-//   Batched mode: the B listeners share one copy of beta and the six
-//   coefficient planes (they are listener-invariant, as in the TPU kernel);
-//   each listener has its own recording [B, T, nx, ny] and accumulators
-//   [6, B, nx, ny]. A listener's blocks run exactly the single-listener
-//   arithmetic, so the batch is bit-equal to B single passes.
+//   Batched mode: B clusters (blockIdx.y the listener) share one copy of
+//   beta and the six coefficient planes (they are listener-invariant, as in
+//   the TPU kernel), each reading them from L2; each listener has its own
+//   recording [B, T, nx, ny] and accumulators [6, B, nx, ny]. A listener's
+//   blocks run exactly the single-listener arithmetic, so the batch is
+//   bit-equal to B single passes.
 //
 //   bf16 mode (S = __nv_bfloat16): p (the recording), vx, vy, beta and the
 //   coefficient planes are stored in bf16; each operation is computed in
@@ -60,10 +50,9 @@
 //   What bounds it on this card: at the 192x192 headline the whole state
 //   (~2.5 MB a listener) fits the cluster's shared memory, and the bytes
 //   the pass must move are the recording's 175 MB, ~0.05 ms at the HBM
-//   rate. The per-step mode is bound by ~T launches (~4.3 us of host
-//   enqueue each); the cluster mode by the latency of its T steps (the
-//   dependent loads and arithmetic of up to 2304 cells an SM on either side
-//   of a block barrier, and a cluster barrier each).
+//   rate. The pass is bound by the latency of its T steps (the dependent
+//   loads and arithmetic of up to 2304 cells an SM on either side of a
+//   block barrier, and a cluster barrier each).
 //
 // B2 (the RT60 moments) lives in moments.cu; this file keeps the device
 // launch counters of the library's kernels (pv_device_launches).
@@ -128,132 +117,12 @@ struct Fields {
   const S* __restrict__ dy;
 };
 
-// Pre-injection pressure of step t at cell (i, j), recomputed from the
-// previous step's state: p_old = rec[t-1] (+ pulse[t-1] at the listener),
-// then p = beta * (p_old - C * div v), with zero velocity beyond the edges.
-template <typename S>
-__device__ __forceinline__ float pressure_at(
-    int i, int j, int nx, int ny, const S* __restrict__ beta,
-    const S* __restrict__ p_prev, const S* __restrict__ vx,
-    const S* __restrict__ vy, int lix, int liy, float inj, float courant) {
-  using St = State<S>;
-  const int64_t c = (int64_t)i * ny + j;
-  float p = St::load(p_prev, c);
-  if (i == lix && j == liy) p = St::round(p + inj);
-  const float vxc = St::load(vx, c);
-  const float vyc = St::load(vy, c);
-  const float vx_xp = (i + 1 < nx) ? St::load(vx, c + ny) : 0.0f;
-  const float vy_yp = (j + 1 < ny) ? St::load(vy, c + 1) : 0.0f;
-  const float div = St::round(St::round(vx_xp - vxc) + St::round(vy_yp - vyc));
-  return St::round(St::load(beta, c) * St::round(p - St::round(courant * div)));
-}
-
-// One step for every listener: cell (i, j) of listener blockIdx.z. The
-// per-step pointers address listener 0; listener b's recording is
-// rec_stride elements on, its velocity buffers vel_stride, its
-// accumulators plane (the six accumulator planes are B planes apart).
-template <typename S>
-__global__ void fdtd_step_kernel(Fields<S> f, float* __restrict__ acc,
-                                 const S* __restrict__ p_prev,
-                                 S* __restrict__ p_out,
-                                 const S* __restrict__ vx_in,
-                                 const S* __restrict__ vy_in,
-                                 S* __restrict__ vx_out,
-                                 S* __restrict__ vy_out,
-                                 const float* __restrict__ pulse,
-                                 const int* __restrict__ lcells, int nx,
-                                 int ny, int t, int64_t rec_stride,
-                                 int64_t vel_stride, float courant, float thr,
-                                 float src_dir_n, float dry_n, float wet_n) {
-  using St = State<S>;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const int b = blockIdx.z;
-  const int64_t plane = (int64_t)nx * ny;
-  const int64_t c = (int64_t)i * ny + j;
-  const bool first = (t == 0);
-  const int lix = lcells[2 * b];
-  const int liy = lcells[2 * b + 1];
-  const float inj = first ? 0.0f : St::round(pulse[t - 1]);
-  if (!first) p_prev += b * rec_stride;
-  p_out += b * rec_stride;
-  vx_in += b * vel_stride;
-  vy_in += b * vel_stride;
-  vx_out += b * vel_stride;
-  vy_out += b * vel_stride;
-  float* a = acc + b * plane;
-  const int64_t acc_stride = (int64_t)gridDim.z * plane;
-
-  // -- pressure (this cell and its backward neighbours)
-  const float p = first ? 0.0f
-                        : pressure_at<S>(i, j, nx, ny, f.beta, p_prev, vx_in,
-                                         vy_in, lix, liy, inj, courant);
-  const float p_xm = (i > 0 && !first)
-                         ? pressure_at<S>(i - 1, j, nx, ny, f.beta, p_prev,
-                                          vx_in, vy_in, lix, liy, inj, courant)
-                         : 0.0f;
-  const float p_ym = (j > 0 && !first)
-                         ? pressure_at<S>(i, j - 1, nx, ny, f.beta, p_prev,
-                                          vx_in, vy_in, lix, liy, inj, courant)
-                         : 0.0f;
-
-  // -- velocities: walls + edge ABC prefolded, v' = A*air + B*p + D*p_m
-  const float vx_old = first ? 0.0f : St::load(vx_in, c);
-  const float vy_old = first ? 0.0f : St::load(vy_in, c);
-  float air = St::round(vx_old - St::round(courant * St::round(p - p_xm)));
-  const float vx = St::round(
-      St::round(St::round(St::load(f.ax, c) * air) +
-                St::round(St::load(f.bx, c) * p)) +
-      St::round(St::load(f.dx, c) * p_xm));
-  air = St::round(vy_old - St::round(courant * St::round(p - p_ym)));
-  const float vy = St::round(
-      St::round(St::round(St::load(f.ay, c) * air) +
-                St::round(St::load(f.by, c) * p)) +
-      St::round(St::load(f.dy, c) * p_ym));
-
-  // -- streaming onset / flux / windowed energies in f32, on the state's
-  // values: the running onset is compared against small-integer-valued f32
-  // bounds, which are exact
-  const float tf = (float)t;
-  const float c_flux = tf - src_dir_n;
-  const float c_dry = tf - dry_n;
-  const float c_wet_lo = tf - dry_n - 1.0f;
-  const float c_wet_hi = tf - dry_n - 1.0f - wet_n;
-
-  float onset = first ? INFINITY : a[c];
-  float fx = first ? 0.0f : a[acc_stride + c];
-  float fy = first ? 0.0f : a[2 * acc_stride + c];
-  float ed = first ? 0.0f : a[3 * acc_stride + c];
-  float ew = first ? 0.0f : a[4 * acc_stride + c];
-  float et = first ? 0.0f : a[5 * acc_stride + c];
-
-  onset = fminf(onset, fabsf(p) > thr ? tf : INFINITY);
-  const float mp = (onset > c_flux) ? p : 0.0f;
-  fx = fx + mp * vx;
-  fy = fy + mp * vy;
-  const float sq = p * p;
-  if (onset > c_dry) ed = ed + sq;
-  if (onset <= c_wet_lo && onset > c_wet_hi) ew = ew + sq;
-  et = et + sq;
-
-  p_out[c] = St::store(p);  // record pre-injection; step t+1 injects pulse[t]
-  vx_out[c] = St::store(vx);
-  vy_out[c] = St::store(vy);
-  a[c] = onset;
-  a[acc_stride + c] = fx;
-  a[2 * acc_stride + c] = fy;
-  a[3 * acc_stride + c] = ed;
-  a[4 * acc_stride + c] = ew;
-  a[5 * acc_stride + c] = et;
-}
-
-// -- B1's cluster mode: one thread-block cluster a listener for the whole
-// pass. Block `rank` of the cluster owns the cells [rank * L, rank * L + L)
-// of the row-major field (L = ceil(nx * ny / kCluster)); its shared memory
-// holds their 13 planes: beta and the six coefficients, then p, vx and vy of
-// the two step parities. A cell's neighbours (c +- 1, c +- ny and the two
-// diagonals pressure_at reaches) are read from whichever block owns them,
+// -- one thread-block cluster a listener for the whole pass. Block `rank`
+// of the cluster owns the cells [rank * L, rank * L + L) of the row-major
+// field (L = ceil(nx * ny / kCluster)); its shared memory holds their 13
+// planes: beta and the six coefficients, then p, vx and vy of the two step
+// parities. A cell's neighbours (c +- 1, c +- ny and the two diagonals
+// cluster_pressure reaches) are read from whichever block owns them,
 // through distributed shared memory, at addresses computed once a pass.
 constexpr int kCluster = 16;          // blocks a cluster (non-portable)
 constexpr int kClusterThreads = 768;  // most threads a block
@@ -309,9 +178,12 @@ __device__ __forceinline__ float cluster_load<__nv_bfloat16>(uint32_t addr) {
   return __bfloat162float(__ushort_as_bfloat16(v));
 }
 
-// pressure_at on distributed shared memory: the cell at `a` (row i, column
-// j) with its +x neighbour at `a_xp` and its +y neighbour at `a_yp`; `po`,
-// `vxo`, `vyo` are the byte offsets of the previous step's planes.
+// Pre-injection pressure of step t at the cell at `a` (row i, column j),
+// recomputed from the previous step's state on distributed shared memory:
+// p_old (+ pulse[t-1] at the listener), then p = beta * (p_old - C * div v),
+// with zero velocity beyond the edges. Its +x neighbour is at `a_xp` and its
+// +y neighbour at `a_yp`; `po`, `vxo`, `vyo` are the byte offsets of the
+// previous step's planes.
 template <typename S>
 __device__ __forceinline__ float cluster_pressure(
     uint32_t a, uint32_t a_xp, uint32_t a_yp, int i, int j, int nx, int ny,
@@ -444,7 +316,7 @@ fdtd_cluster_kernel(Fields<S> f, float* __restrict__ acc,
     // -- velocities: walls + edge ABC prefolded, v' = A*air + B*p + D*p_m.
     // p of (i, j-1) is the previous lane's; p of (i-1, j) is read from this
     // block's new pressures, or recomputed from a neighbour block's state of
-    // step t-1 (pressure_at), as is (i, j-1) across a block edge.
+    // step t-1 (cluster_pressure), as is (i, j-1) across a block edge.
     const float tf = (float)t;
     const float c_flux = tf - src_dir_n;
     const float c_dry = tf - dry_n;
@@ -548,7 +420,7 @@ fdtd_cluster_kernel(Fields<S> f, float* __restrict__ acc,
   }
 }
 
-// Cells a block of the cluster mode owns, and its dynamic shared memory.
+// Cells a block of the cluster owns, and its dynamic shared memory.
 int cluster_run(int nx, int ny) {
   return (int)(((int64_t)nx * ny + kCluster - 1) / kCluster);
 }
@@ -591,80 +463,53 @@ cudaLaunchConfig_t cluster_config(int L, int B, cudaStream_t s,
 
 template <typename S>
 int launch_sim(const void* const* planes, const float* pulse, void* rec_v,
-               float* acc, void* vel_v, const int* lcells, int nx, int ny,
-               int T, int B, bool cluster, float courant, float thr,
-               float src_dir_n, float dry_n, float wet_n, cudaStream_t s) {
+               float* acc, const int* lcells, int nx, int ny, int T, int B,
+               float courant, float thr, float src_dir_n, float dry_n,
+               float wet_n, cudaStream_t s) {
+  // a field larger than a cluster holds is refused
+  if ((int64_t)nx * ny > kClusterCells) return (int)cudaErrorInvalidValue;
   const Fields<S> f{
       static_cast<const S*>(planes[0]), static_cast<const S*>(planes[1]),
       static_cast<const S*>(planes[2]), static_cast<const S*>(planes[3]),
       static_cast<const S*>(planes[4]), static_cast<const S*>(planes[5]),
       static_cast<const S*>(planes[6])};
-  S* rec = static_cast<S*>(rec_v);
-  if (cluster) {
-    // one launch a pass; a field larger than a cluster holds is refused
-    if ((int64_t)nx * ny > kClusterCells) return (int)cudaErrorInvalidValue;
-    const int L = cluster_run(nx, ny);
-    const int err = set_cluster_attrs<S>(L);
-    if (err != 0) return err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config<S>(L, B, s, &attr);
-    return pv::count_launch(
-        pv::kFdtdClusterKernel,
-        cudaLaunchKernelEx(&cfg, fdtd_cluster_kernel<S>, f, acc, rec, pulse,
-                           lcells, nx, ny, T, L, courant, thr, src_dir_n,
-                           dry_n, wet_n));
-  }
-  S* vel = static_cast<S*>(vel_v);
-  const dim3 block(32, 8);
-  const dim3 grid((ny + block.x - 1) / block.x, (nx + block.y - 1) / block.y,
-                  B);
-  const int64_t plane = (int64_t)nx * ny;
-  const int64_t rec_stride = (int64_t)T * plane;
-  const int64_t vel_stride = 4 * plane;
-  for (int t = 0; t < T; ++t) {
-    const S* p_prev = t > 0 ? rec + (int64_t)(t - 1) * plane : nullptr;
-    S* p_out = rec + (int64_t)t * plane;
-    const bool even = (t & 1) == 0;
-    S* v_in = vel + (even ? 0 : 2) * plane;   // (vx, vy) of step t-1
-    S* v_out = vel + (even ? 2 : 0) * plane;  // (vx, vy) of step t
-    fdtd_step_kernel<S><<<grid, block, 0, s>>>(
-        f, acc, p_prev, p_out, v_in, v_in + plane, v_out, v_out + plane,
-        pulse, lcells, nx, ny, t, rec_stride, vel_stride, courant, thr,
-        src_dir_n, dry_n, wet_n);
-    const int err = pv::count_launch(pv::kFdtdStepKernel);
-    if (err != 0) return err;
-  }
-  return 0;
+  const int L = cluster_run(nx, ny);
+  const int err = set_cluster_attrs<S>(L);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<S>(L, B, s, &attr);
+  return pv::count_launch(
+      pv::kFdtdClusterKernel,
+      cudaLaunchKernelEx(&cfg, fdtd_cluster_kernel<S>, f, acc,
+                         static_cast<S*>(rec_v), pulse, lcells, nx, ny, T, L,
+                         courant, thr, src_dir_n, dry_n, wet_n));
 }
 
 }  // namespace
 
-// B listeners (lcells: [B, 2] int32 on the device). rec: [B, T, nx, ny],
-// vel: [B, 4, nx, ny] (vx_a, vy_a, vx_b, vy_b; unused, and may be null, in
-// the cluster mode), both of the state type (bf16 != 0: __nv_bfloat16, else
-// float), as are the 7 field planes; acc: [6, B, nx, ny] float (onset, fx,
-// fy, e_dry, e_wet, e_total). cluster != 0: the cluster mode, one launch
-// (nx * ny <= kCluster * kClusterThreads * kClusterRun); else one launch a
-// step.
+// B listeners (lcells: [B, 2] int32 on the device), one launch of B
+// clusters, nx * ny <= kCluster * kClusterThreads * kClusterRun. rec:
+// [B, T, nx, ny] of the state type (bf16 != 0: __nv_bfloat16, else float),
+// as are the 7 field planes; acc: [6, B, nx, ny] float (onset, fx, fy,
+// e_dry, e_wet, e_total).
 extern "C" int pv_fdtd_sim(
     const void* beta, const void* ax, const void* bx, const void* dx,
     const void* ay, const void* by, const void* dy, const float* pulse,
-    void* rec, float* acc, void* vel, const int* lcells, int nx, int ny,
-    int T, int B, int bf16, int cluster, float courant, float thr,
-    float src_dir_n, float dry_n, float wet_n, void* stream) {
+    void* rec, float* acc, const int* lcells, int nx, int ny, int T, int B,
+    int bf16, float courant, float thr, float src_dir_n, float dry_n,
+    float wet_n, void* stream) {
   const void* planes[7] = {beta, ax, bx, dx, ay, by, dy};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_sim<__nv_bfloat16>(planes, pulse, rec, acc, vel, lcells, nx,
-                                     ny, T, B, cluster != 0, courant, thr,
-                                     src_dir_n, dry_n, wet_n, s);
-  return launch_sim<float>(planes, pulse, rec, acc, vel, lcells, nx, ny, T, B,
-                           cluster != 0, courant, thr, src_dir_n, dry_n,
-                           wet_n, s);
+    return launch_sim<__nv_bfloat16>(planes, pulse, rec, acc, lcells, nx, ny,
+                                     T, B, courant, thr, src_dir_n, dry_n,
+                                     wet_n, s);
+  return launch_sim<float>(planes, pulse, rec, acc, lcells, nx, ny, T, B,
+                           courant, thr, src_dir_n, dry_n, wet_n, s);
 }
 
-// Clusters of the cluster mode the card can hold at once for an nx x ny
-// field (cudaOccupancyMaxActiveClusters), or -(CUDA error) if it refuses.
+// Clusters the card can hold at once for an nx x ny field
+// (cudaOccupancyMaxActiveClusters), or -(CUDA error) if it refuses.
 extern "C" int pv_fdtd_cluster_occupancy(int nx, int ny, int bf16) {
   const int L = cluster_run(nx, ny);
   int err = bf16 ? set_cluster_attrs<__nv_bfloat16>(L)

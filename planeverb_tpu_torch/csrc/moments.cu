@@ -17,9 +17,9 @@
 // 3.35 TB/s) and the instructions of one logf per sample (about 27 with
 // the max and the scale, without fast math), one a cycle on each of 132
 // SMs x 4 schedulers. At the headline the field has 36,864 cells, so a
-// design with a thread a cell has 8.7 warps an SM: the earlier one (kept
-// as the probe `direct`) walked each column with direct loads and kept too
-// few bytes in flight, and its loads and logarithms added up.
+// design with a thread a cell has 8.7 warps an SM: the earlier one walked
+// each column with direct loads and kept too few bytes in flight, and its
+// loads and logarithms added up.
 //
 // The design: a launch takes a table of up to kMaxEntries recordings (a
 // by-value kernel parameter: no copy to the device and no host sync), each
@@ -37,11 +37,10 @@
 //   - the logarithms only of chunks that meet some lane's window (the
 //     plain version selects y only inside the window, so the ones taken
 //     outside it change no bit).
-// Only the three sums and edc stay serial. The probe `spread` keeps the
-// other shape tried: a 128-thread block a tile whose four warps share the
-// logarithms through shared memory, the cell warp scanning and summing,
-// two block barriers a chunk; its blocks run their serial phases in
-// lockstep and it is slower than either.
+// Only the three sums and edc stay serial. The other shape tried, a
+// 128-thread block a tile whose four warps share the logarithms through
+// shared memory, ran its blocks' serial phases in lockstep and was slower
+// than either.
 //
 // Rows that do not start 16-byte aligned (X*Y*4 bytes a row not a multiple
 // of 16, as at 29x29 or 459^2; or a recording whose first sample is not
@@ -76,11 +75,9 @@
 namespace {
 
 constexpr int kTile = 32;         // cells a tile: a warp, a lane a cell
-constexpr int kSpreadThreads = 128;  // the spread probe: threads a block
 constexpr int kChunk = 16;        // rows (time steps) of a ring stage
 constexpr int kStages = 4;        // ring stages
 constexpr int kMaxEntries = 64;   // recordings a launch
-constexpr int kDirectTile = 128;  // the direct probe: cells (threads) a block
 constexpr int kNever = 1 << 30;   // a window bound no t reaches
 
 // One recording of a launch (kernels.py MomentsEntry mirrors it).
@@ -102,9 +99,6 @@ struct Table {
 // What a probe runs: everything, the loads and sums without the logarithms,
 // or the logarithms and sums on samples made in registers.
 enum Mode : int { kFull = 0, kNoLog = 1, kNoLoad = 2 };
-// The probe's designs: the kernel, the thread-a-cell design it replaced,
-// and the block-wide spread of the logarithms.
-enum Design : int { kWarp = 0, kDirect = 1, kSpread = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -158,32 +152,12 @@ constexpr int kRowWords = kTile * (int)sizeof(S) / 16 + 1;
 
 template <typename S>
 using Ring = uint4[kStages][kChunk][kRowWords<S>];
-using Buffer = float[2][kChunk][kTile];
 
 // Rows [lo, hi) of chunk i: chunk 0 holds the last kChunk rows, the last
 // chunk the first T mod kChunk (or kChunk).
 __device__ __forceinline__ int chunk_hi(int T, int i) { return T - i * kChunk; }
 __device__ __forceinline__ int chunk_lo(int T, int i) {
   return max(chunk_hi(T, i) - kChunk, 0);
-}
-
-// Copies rows [lo, lo + rows) of a tile of n cells (row 0's first cell at
-// rec) into a ring stage, `threads` threads from `tid` sharing the 16-byte
-// words; a row that starts mid-word is copied as the words that cover it.
-template <typename S, bool kAligned>
-__device__ __forceinline__ void copy_chunk(uint4 (*stage)[kRowWords<S>],
-                                           const S* rec, int64_t cells, int n,
-                                           int lo, int rows, int tid,
-                                           int threads) {
-  constexpr int W = kRowWords<S>;
-  for (int q = tid; q < rows * W; q += threads) {
-    const int k = q / W;
-    const int w = q - k * W;
-    const uintptr_t row = (uintptr_t)(rec + (int64_t)(lo + k) * cells);
-    const int shift = kAligned ? 0 : (int)(row & 15);
-    if (16 * w < shift + n * (int)sizeof(S))
-      cp_async16(&stage[k][w], (const void*)((row & ~(uintptr_t)15) + 16 * w));
-  }
 }
 
 // Sample `lane` of row t (row k of its stage): the row's first tile sample
@@ -320,102 +294,6 @@ __device__ __forceinline__ void warp_tile(const Entry& en, int tile, int T,
   }
 }
 
-// The spread design, kept as a probe: a 128-thread block a tile, the cell
-// threads (warp 0) scan edc into a buffer, all four warps take the
-// logarithms, the cell threads add the sums a chunk behind; two block
-// barriers a chunk.
-template <typename S, int kMode, bool kAligned>
-__device__ __forceinline__ void spread_tile(const Entry& en, int tile, int T,
-                                            float dry_n1, float end,
-                                            float log10_scale, Ring<S>& ring,
-                                            Buffer& ey) {
-  const int tid = threadIdx.x;
-  const int64_t cells = en.cells;
-  const int64_t c0 = (int64_t)tile * kTile;
-  const int n = (int)min((int64_t)kTile, cells - c0);
-  const S* rec = static_cast<const S*>(en.rec) + c0;
-  const int j = tid % kTile;  // this thread's cell
-  const float start = j < n ? en.onset[c0 + j] + dry_n1 : INFINITY;
-  const int t_lo = first_t(start);
-  const int t_hi = first_t(end);
-  const int n_chunks = (T + kChunk - 1) / kChunk;
-  const unsigned base = (unsigned)(uintptr_t)rec;
-  const unsigned row_bytes = (unsigned)(cells * (int)sizeof(S));
-
-  auto fetch = [&](int i) {
-    if (kMode != kNoLoad && i < n_chunks) {
-      const int lo = chunk_lo(T, i);
-      copy_chunk<S, kAligned>(ring[i % kStages], rec, cells, n, lo,
-                              chunk_hi(T, i) - lo, tid, kSpreadThreads);
-    }
-    cp_async_commit();
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages; ++s) fetch(s);
-  float edc = 0.0f;
-  float s0 = 0.0f;
-  float s1 = 0.0f;
-  for (int i = 0; i <= n_chunks; ++i) {
-    if (i < n_chunks) cp_async_wait<kStages - 1>();
-    __syncthreads();
-    if (tid < kTile) {
-      if (i > 0) {  // the sums of chunk i - 1
-        const int lo = chunk_lo(T, i - 1);
-        const int hi = chunk_hi(T, i - 1);
-        const float tf0 = (float)lo;
-#pragma unroll
-        for (int k = kChunk - 1; k >= 0; --k) {
-          const int t = lo + k;
-          if (t < hi && t >= t_lo && t < t_hi) {
-            const float y = ey[(i - 1) & 1][k][j];
-            s0 = s0 + y;
-            s1 = s1 + ((tf0 + (float)k) - start) * y;
-          }
-        }
-      }
-      if (i < n_chunks) {  // the scan of chunk i
-        const int lo = chunk_lo(T, i);
-        const int hi = chunk_hi(T, i);
-#pragma unroll
-        for (int k = kChunk - 1; k >= 0; --k) {
-          const int t = lo + k;
-          if (t < hi) {
-            const float p =
-                kMode == kNoLoad
-                    ? made_sample(t, c0 + j)
-                    : ring_sample<S, kAligned>(ring[i % kStages][k], t, base,
-                                               row_bytes, j);
-            edc = edc + p * p;
-            ey[i & 1][k][j] = edc;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (i < n_chunks) {
-      fetch(i + kStages);
-      if (kMode != kNoLog) {  // the logarithms of chunk i
-        const int lo = chunk_lo(T, i);
-        const int hi = chunk_hi(T, i);
-#pragma unroll
-        for (int m = 0; m < kChunk * kTile / kSpreadThreads; ++m) {
-          const int k = tid / kTile + m * (kSpreadThreads / kTile);
-          const int t = lo + k;
-          if (t < hi && t >= t_lo && t < t_hi) {
-            float& v = ey[i & 1][k][j];
-            v = logf(fmaxf(v, 1e-37f)) * log10_scale;
-          }
-        }
-      }
-    }
-  }
-  if (tid < n) {
-    en.s0[c0 + tid] = s0;
-    en.s1[c0 + tid] = s1;
-  }
-}
-
 template <typename S, int kMode>
 __global__ void __launch_bounds__(kTile)
     rt60_moments_kernel(const __grid_constant__ Table table, int T,
@@ -429,54 +307,6 @@ __global__ void __launch_bounds__(kTile)
     warp_tile<S, kMode, false>(en, tile, T, dry_n1, end, log10_scale, ring);
 }
 
-template <typename S, int kMode>
-__global__ void __launch_bounds__(kSpreadThreads)
-    rt60_moments_spread_kernel(const __grid_constant__ Table table, int T,
-                               float dry_n1, float end, float log10_scale) {
-  __shared__ Ring<S> ring;
-  __shared__ Buffer ey;
-  const Entry& en = entry_of(table, blockIdx.x);
-  const int tile = (int)blockIdx.x - en.tile0;
-  if (en.aligned)
-    spread_tile<S, kMode, true>(en, tile, T, dry_n1, end, log10_scale, ring,
-                                ey);
-  else
-    spread_tile<S, kMode, false>(en, tile, T, dry_n1, end, log10_scale, ring,
-                                 ey);
-}
-
-// The earlier design, kept as a probe: one thread a cell walks its column
-// with direct loads (unrolled by 8), blocks of kDirectTile cells.
-template <typename S, int kMode>
-__global__ void __launch_bounds__(kDirectTile)
-    rt60_moments_direct_kernel(const __grid_constant__ Table table, int T,
-                               float dry_n1, float end, float log10_scale) {
-  const Entry& en = entry_of(table, blockIdx.x);
-  const int64_t c =
-      (int64_t)((int)blockIdx.x - en.tile0) * kDirectTile + threadIdx.x;
-  if (c >= en.cells) return;
-  const S* rec = static_cast<const S*>(en.rec);
-  const float start = en.onset[c] + dry_n1;
-  float edc = 0.0f;
-  float s0 = 0.0f;
-  float s1 = 0.0f;
-#pragma unroll 8
-  for (int t = T - 1; t >= 0; --t) {
-    const float p = kMode == kNoLoad ? made_sample(t, c)
-                                     : to_float(rec[(int64_t)t * en.cells + c]);
-    edc = edc + p * p;
-    const float y =
-        kMode == kNoLog ? edc : logf(fmaxf(edc, 1e-37f)) * log10_scale;
-    const float tf = (float)t;
-    if (tf >= start && tf < end) {
-      s0 = s0 + y;
-      s1 = s1 + (tf - start) * y;
-    }
-  }
-  en.s0[c] = s0;
-  en.s1[c] = s1;
-}
-
 bool make_table(const void* entries, int n, int tiles, Table* table) {
   if (n < 1 || n > kMaxEntries || tiles < 1) return false;
   memset(table, 0, sizeof(Table));
@@ -486,28 +316,21 @@ bool make_table(const void* entries, int n, int tiles, Table* table) {
 }
 
 template <typename S, int kMode>
-void launch(int design, const Table& table, int tiles, int T, float dry_n1,
-            float end, float log10_scale, cudaStream_t s) {
-  if (design == kDirect)
-    rt60_moments_direct_kernel<S, kMode><<<tiles, kDirectTile, 0, s>>>(
-        table, T, dry_n1, end, log10_scale);
-  else if (design == kSpread)
-    rt60_moments_spread_kernel<S, kMode><<<tiles, kSpreadThreads, 0, s>>>(
-        table, T, dry_n1, end, log10_scale);
-  else
-    rt60_moments_kernel<S, kMode><<<tiles, kTile, 0, s>>>(
-        table, T, dry_n1, end, log10_scale);
+void launch(const Table& table, int tiles, int T, float dry_n1, float end,
+            float log10_scale, cudaStream_t s) {
+  rt60_moments_kernel<S, kMode><<<tiles, kTile, 0, s>>>(table, T, dry_n1, end,
+                                                        log10_scale);
 }
 
 template <typename S>
-void launch_mode(int design, int mode, const Table& table, int tiles, int T,
-                 float dry_n1, float end, float log10_scale, cudaStream_t s) {
+void launch_mode(int mode, const Table& table, int tiles, int T, float dry_n1,
+                 float end, float log10_scale, cudaStream_t s) {
   if (mode == kNoLog)
-    launch<S, kNoLog>(design, table, tiles, T, dry_n1, end, log10_scale, s);
+    launch<S, kNoLog>(table, tiles, T, dry_n1, end, log10_scale, s);
   else if (mode == kNoLoad)
-    launch<S, kNoLoad>(design, table, tiles, T, dry_n1, end, log10_scale, s);
+    launch<S, kNoLoad>(table, tiles, T, dry_n1, end, log10_scale, s);
   else
-    launch<S, kFull>(design, table, tiles, T, dry_n1, end, log10_scale, s);
+    launch<S, kFull>(table, tiles, T, dry_n1, end, log10_scale, s);
 }
 
 }  // namespace
@@ -524,32 +347,29 @@ extern "C" int pv_rt60_moments(const void* entries, int n, int tiles, int T,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch<__nv_bfloat16, kFull>(kWarp, table, tiles, T, dry_n1, end,
-                                 log10_scale, s);
+    launch<__nv_bfloat16, kFull>(table, tiles, T, dry_n1, end, log10_scale,
+                                 s);
   else
-    launch<float, kFull>(kWarp, table, tiles, T, dry_n1, end, log10_scale, s);
+    launch<float, kFull>(table, tiles, T, dry_n1, end, log10_scale, s);
   return pv::count_launch(pv::kRt60MomentsKernel);
 }
 
-// The same with a probe's design (0 the kernel, 1 direct: its table tiled
-// by kDirectTile, 2 spread) and mode (0 everything, 1 no logarithms, 2 no
+// The same with a probe's mode (0 everything, 1 no logarithms, 2 no
 // loads); counted nowhere. Its s0/s1 equal pv_rt60_moments's in mode 0
 // only.
 extern "C" int pv_rt60_moments_probe(const void* entries, int n, int tiles,
                                      int T, int bf16, float dry_n1, float end,
-                                     float log10_scale, int design, int mode,
+                                     float log10_scale, int mode,
                                      void* stream) {
   Table table;
-  if (!make_table(entries, n, tiles, &table) || mode < 0 || mode > 2 ||
-      design < 0 || design > 2)
+  if (!make_table(entries, n, tiles, &table) || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch_mode<__nv_bfloat16>(design, mode, table, tiles, T, dry_n1, end,
+    launch_mode<__nv_bfloat16>(mode, table, tiles, T, dry_n1, end,
                                log10_scale, s);
   else
-    launch_mode<float>(design, mode, table, tiles, T, dry_n1, end,
-                       log10_scale, s);
+    launch_mode<float>(mode, table, tiles, T, dry_n1, end, log10_scale, s);
   return (int)cudaGetLastError();
 }
 

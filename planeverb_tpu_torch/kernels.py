@@ -49,17 +49,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # 7 field planes, pulse, rec, accumulators, velocity buffers, [B, 2]
-    # listener cells, nx, ny, T, B, bf16, cluster, courant, thr, src_dir_n,
-    # dry_n, wet_n, stream
-    "pv_fdtd_sim": [_P] * 12 + [_I] * 6 + [_F] * 5 + [_P],
-    # nx, ny, bf16 -> clusters of B1's cluster mode the card holds at once
+    # 7 field planes, pulse, rec, accumulators, [B, 2] listener cells, nx,
+    # ny, T, B, bf16, courant, thr, src_dir_n, dry_n, wet_n, stream
+    "pv_fdtd_sim": [_P] * 11 + [_I] * 5 + [_F] * 5 + [_P],
+    # nx, ny, bf16 -> clusters of B1 the card holds at once
     "pv_fdtd_cluster_occupancy": [_I] * 3,
     # MomentsEntry table, entries, tiles, T, bf16, dry_n + 1, end,
     # log10_scale, stream
     "pv_rt60_moments": [_P] + [_I] * 4 + [_F] * 3 + [_P],
-    # the same, then the probe's design and mode (chip_smoke.py)
-    "pv_rt60_moments_probe": [_P] + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    # the same, then the probe's mode (chip_smoke.py)
+    "pv_rt60_moments_probe": [_P] + [_I] * 4 + [_F] * 3 + [_I] + [_P],
     # -> sizeof(Entry) in csrc/moments.cu
     "pv_moments_entry_bytes": [],
     # beta, Y, pulse, rec, 6 accumulators, 2 x (p, vx, vy) state slots,
@@ -107,12 +106,11 @@ _SIGNATURES = {
 # The library's kernels in the order of csrc/common.cuh DeviceKernel. The
 # sharded rounds' one kernel (csrc/solver_rounds.cu round_kernel) is
 # counted by the mode its launcher ran it in: B5 or B6.
-DEVICE_KERNELS = ("fdtd_cluster_kernel", "fdtd_step_kernel",
-                  "rt60_moments_kernel", "fdtd_tiled_kernel",
-                  "rt60_moments_tiled_kernel", "biquad_scan_kernel",
-                  "reverb_scan_kernel", "analysis_assemble_kernel",
-                  "analysis_directions_kernel", "round_kernel B5",
-                  "round_kernel B6")
+DEVICE_KERNELS = ("fdtd_cluster_kernel", "rt60_moments_kernel",
+                  "fdtd_tiled_kernel", "rt60_moments_tiled_kernel",
+                  "biquad_scan_kernel", "reverb_scan_kernel",
+                  "analysis_assemble_kernel", "analysis_directions_kernel",
+                  "round_kernel B5", "round_kernel B6")
 
 # the views an A1 or A2 launch takes (csrc/analysis.cu kMaxViews)
 ANALYSIS_MAX_VIEWS = 16

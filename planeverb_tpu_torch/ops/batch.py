@@ -7,9 +7,9 @@ FDTD.cpp:233-234). This module adds the other axes:
 
   - **listeners**: split-screen / multiplayer. :func:`simulate_listeners`
     is the plain per-listener loop; :func:`simulate_listeners_auto` runs
-    the batched B1 kernel (``fdtd_fused.fdtd_sim_batch``: one launch a step
-    for all listeners) up to ``fdtd_fused.TILED_MIN_CELLS`` cells, and one
-    ``simulate_auto`` pass per listener above it.
+    the batched B1 kernel (``fdtd_fused.fdtd_sim_batch``: one launch for
+    all listeners) or one B3 pass per listener, as
+    ``fdtd_fused.route_tiled`` routes the batch.
   - **scenes**: level precomputation / dataset generation, one pass per
     (beta, reflection) field set; **slices**: one pass per horizontal
     slice of a 3D scene.
@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from planeverb_tpu_torch.config import GridParams
-from planeverb_tpu_torch.ops import analyzer, fdtd, fdtd_fused, voxelize
+from planeverb_tpu_torch.ops import (analyzer, fdtd, fdtd_fused, fdtd_tiled,
+                                     voxelize)
 from planeverb_tpu_torch.ops.fdtd import FdtdResult
 from planeverb_tpu_torch.scene import project_to_slice
 
@@ -55,14 +56,15 @@ def simulate_listeners(params: GridParams, beta, refl, pulse,
 
 def simulate_listeners_auto(params: GridParams, beta, refl, pulse,
                             listener_ix, listener_iy) -> FdtdResult:
-    """Batched listeners on the fields' device: the batched B1 pass up to
-    ``fdtd_fused.TILED_MIN_CELLS`` cells, one ``simulate_auto`` (B3) pass
-    per listener above it. Equal to :func:`simulate_listeners`."""
+    """Batched listeners on the fields' device, float32, routed by
+    ``fdtd_fused.route_tiled`` for their number: the batched B1 pass, or
+    one B3 pass per listener. Equal to :func:`simulate_listeners`."""
     cells = _cells(listener_ix, listener_iy)
-    if params.nx * params.ny <= fdtd_fused.TILED_MIN_CELLS:
+    if not fdtd_fused.route_tiled(params.nx * params.ny, len(cells),
+                                  torch.float32, beta.device.type == "cuda"):
         res, _ = fdtd_fused.fdtd_sim_batch(params, beta, refl, pulse, cells)
         return res
-    return _stack(fdtd_fused.simulate_auto(params, beta, refl, pulse, i, j)
+    return _stack(fdtd_tiled.fdtd_sim_tiled(params, beta, refl, pulse, i, j)[0]
                   for i, j in cells)
 
 

@@ -9,10 +9,11 @@ wrappers for one listener and for B:
     flux and the windowed energies, in ``csrc/fdtd_fused.cu``.
     :func:`fdtd_sim` for one listener,
     :func:`fdtd_sim_batch` for B listeners in one pass (its ``batched``
-    mode: the B listeners share the field planes). Up to
-    :data:`CLUSTER_CELLS` cells a pass is one launch, a thread-block
-    cluster a listener holding the field on chip for all T steps; above
-    it, one launch a step (:func:`b1_mode`).
+    mode: the B listeners share the field planes). A pass is one launch,
+    a thread-block cluster a listener holding the field on chip for all T
+    steps, for fields of at most :data:`CLUSTER_CELLS` cells
+    (:func:`b1_fits`); the card refuses a larger one, which the route
+    sends to the tiled kernels.
   - B2 (replaces ``fdtd_pallas.py::_moments_kernel``): one backward pass
     over the recording for the RT60 regression moments, in
     ``csrc/moments.cu``. :func:`rt60_moments` for one recording,
@@ -35,12 +36,9 @@ counts its kernel launches in its ``launches`` attribute;
 :func:`reset_launch_counts` zeroes every kernel's counter.
 
 :func:`simulate_auto`, :func:`pipeline_auto` and :func:`pipeline_auto_batch`
-route a grid above :data:`TILED_MIN_CELLS` cells to the tiled kernels of
-``ops/fdtd_tiled.py`` (B3, B4; float32 state, one listener a pass), on the
-card and in the plain versions alike. On the card :func:`simulate_auto`
-and :func:`pipeline_auto` also send one float32 listener there from
-:data:`TILED_SINGLE_MIN_CELLS` (:func:`route_tiled`); B1 keeps batches,
-bf16 passes and the smaller grids.
+take the route :func:`route_tiled` gives their pass: the tiled kernels of
+``ops/fdtd_tiled.py`` (B3, B4; float32 state, one listener a pass) or B1 +
+B2.
 
 Fields are exactly [nx, ny] and a recording exactly [T, nx, ny]: no
 padding, no chunking, and no element limit (offsets are 64-bit); a batch
@@ -68,11 +66,10 @@ from planeverb_tpu_torch.ops.analyzer import AnalyzerResults, Moments
 from planeverb_tpu_torch.ops.fdtd import FdtdResult, fdtd_step_folded
 from planeverb_tpu_torch.utils.profiling import count, span, spanned
 
-__all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
-           "fdtd_sim_reference", "fdtd_sim_per_step", "fdtd_sim_batch",
-           "fdtd_sim_batch_reference", "MOMENTS_TILE", "MOMENTS_DIRECT_TILE",
-           "MOMENTS_CHUNK", "MOMENTS_MAX_ENTRIES", "MOMENTS_PROBE_DESIGNS",
-           "MOMENTS_PROBE_MODES", "MomentsRow",
+__all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_fits", "fdtd_sim",
+           "fdtd_sim_reference", "fdtd_sim_batch",
+           "fdtd_sim_batch_reference", "MOMENTS_TILE", "MOMENTS_CHUNK",
+           "MOMENTS_MAX_ENTRIES", "MOMENTS_PROBE_MODES", "MomentsRow",
            "moments_table", "rt60_moments", "rt60_moments_reference",
            "rt60_moments_batch", "rt60_moments_batch_reference",
            "rt60_moments_many", "rt60_moments_many_reference",
@@ -84,8 +81,8 @@ __all__ = ["STATE_DTYPES", "CLUSTER_CELLS", "b1_mode", "fdtd_sim",
 
 # the wave-state types of B1 (and recording types of B2)
 STATE_DTYPES = (torch.float32, torch.bfloat16)
-# the most cells B1's cluster mode holds: 16 blocks of 768 threads, three
-# cells a thread (csrc/fdtd_fused.cu kCluster, kClusterThreads, kClusterRun)
+# the most cells B1's cluster holds: 16 blocks of 768 threads, three cells
+# a thread (csrc/fdtd_fused.cu kCluster, kClusterThreads, kClusterRun)
 CLUSTER_CELLS = 16 * 768 * 3
 
 
@@ -160,26 +157,22 @@ def fdtd_sim_reference(params: GridParams, beta, refl, pulse,
     return FdtdResult(*(x[0] for x in res)), tuple(x[0] for x in acc)
 
 
-def b1_mode(nx: int, ny: int, state_dtype, B: int) -> str:
-    """B1's kernel mode for a pass, chosen before launch from the kernel's
-    capacity alone: ``"cluster"`` (one thread-block cluster a listener
-    holds the field for all T steps, one launch a pass) for every field of
-    at most :data:`CLUSTER_CELLS` cells, in float32 and bf16 and for any
-    number of listeners B; ``"step"`` (one launch a step) above it. The
-    route (``pipeline_auto``, :data:`TILED_MIN_CELLS`) sends B1 no grid
-    above the cluster's capacity."""
-    if state_dtype not in STATE_DTYPES or B < 1 or min(nx, ny) < 1:
-        raise ValueError(f"b1_mode: no mode for {nx}x{ny}, {state_dtype}, "
-                         f"B = {B}")
-    return "cluster" if nx * ny <= CLUSTER_CELLS else "step"
+def b1_fits(nx: int, ny: int) -> bool:
+    """Whether B1's kernel holds an nx x ny field: at most
+    :data:`CLUSTER_CELLS` cells, in float32 and bf16 and for any number of
+    listeners. :func:`route_tiled` sends B1 no larger grid."""
+    return nx * ny <= CLUSTER_CELLS
 
 
-def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
-                     state_dtype, mode=None):
+def _launch_fdtd_sim(where: str, params: GridParams, beta, refl, pulse,
+                     cells, state_dtype):
     nx, ny, T = params.nx, params.ny, params.response_length
+    if not b1_fits(nx, ny):
+        raise ValueError(f"{where}: a {nx}x{ny} field is above the "
+                         f"{CLUSTER_CELLS} cells B1 holds on the card; the "
+                         f"tiled kernels (fdtd_tiled.fdtd_sim_tiled, "
+                         f"rt60_moments_tiled) step it")
     B = len(cells)
-    if mode is None:
-        mode = b1_mode(nx, ny, state_dtype, B)
     courant, thr, src_dir_n, dry_n, wet_n = window_scalars(params,
                                                            state_dtype)
     coefs = coefficients(params, beta, refl)
@@ -188,10 +181,6 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
     dev = beta.device
     rec = torch.empty((B, T, nx, ny), dtype=state_dtype, device=dev)
     acc = torch.empty((6, B, nx, ny), dtype=torch.float32, device=dev)
-    # the per-step mode's velocity buffers; the cluster mode keeps its state
-    # on chip
-    vel = (torch.empty((B, 4, nx, ny), dtype=state_dtype, device=dev)
-           if mode == "step" else None)
     # the [B, 2] listener table, copied without a host sync
     lc = torch.tensor(cells, dtype=torch.int32).pin_memory().to(
         dev, non_blocking=True)
@@ -200,10 +189,9 @@ def _launch_fdtd_sim(params: GridParams, beta, refl, pulse, cells,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pv_fdtd_sim(
             *(f.data_ptr() for f in fields), pulse.data_ptr(),
-            rec.data_ptr(), acc.data_ptr(),
-            None if vel is None else vel.data_ptr(), lc.data_ptr(), nx, ny,
-            T, B, int(state_dtype == torch.bfloat16), int(mode == "cluster"),
-            courant, thr, src_dir_n, dry_n, wet_n, stream)
+            rec.data_ptr(), acc.data_ptr(), lc.data_ptr(), nx, ny, T, B,
+            int(state_dtype == torch.bfloat16), courant, thr, src_dir_n,
+            dry_n, wet_n, stream)
     return err, rec, acc
 
 
@@ -228,7 +216,7 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int,
     if not on_card(where, beta, refl, pulse):
         return fdtd_sim_reference(params, beta, refl, pulse, lix, liy,
                                   state_dtype)
-    err, rec, acc = _launch_fdtd_sim(params, beta, refl, pulse,
+    err, rec, acc = _launch_fdtd_sim(where, params, beta, refl, pulse,
                                      [(lix, liy)], state_dtype)
     kernels.check(err, where)
     fdtd_sim.launches += 1
@@ -242,9 +230,8 @@ def fdtd_sim(params: GridParams, beta, refl, pulse, lix: int, liy: int,
 def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
                    state_dtype=torch.float32):
     """B1 for B listeners in one pass (the TPU kernel's batched mode): one
-    launch (B clusters; or one a step above :data:`CLUSTER_CELLS`)
-    advances every listener, all reading one copy of the field planes.
-    Bit-equal to B :func:`fdtd_sim` passes.
+    launch of B clusters advances every listener, all reading one copy of
+    the field planes. Bit-equal to B :func:`fdtd_sim` passes.
 
     ``lcells`` is a host [B, 2] integer array-like of listener cells; the
     other arguments as :func:`fdtd_sim`. Returns (FdtdResult,
@@ -256,8 +243,8 @@ def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
     if not on_card(where, beta, refl, pulse):
         return fdtd_sim_batch_reference(params, beta, refl, pulse, cells,
                                         state_dtype)
-    err, rec, acc = _launch_fdtd_sim(params, beta, refl, pulse, cells,
-                                     state_dtype)
+    err, rec, acc = _launch_fdtd_sim(where, params, beta, refl, pulse,
+                                     cells, state_dtype)
     kernels.check(err, where)
     fdtd_sim_batch.launches += 1
     onset, fx, fy, ed, ew, et = acc
@@ -265,43 +252,16 @@ def fdtd_sim_batch(params: GridParams, beta, refl, pulse, lcells,
             (ed, ew, et))
 
 
-@counted
-def fdtd_sim_per_step(params: GridParams, beta, refl, pulse, lix: int,
-                      liy: int, state_dtype=torch.float32):
-    """:func:`fdtd_sim` in B1's per-step mode at any size: one launch a
-    step, the mode :func:`b1_mode` takes above :data:`CLUSTER_CELLS`.
-    ``chip_smoke.py`` holds the cluster mode to it; the engine does not
-    call it."""
-    where = "fdtd_sim_per_step"
-    _check_sim(where, params, beta, refl, pulse, state_dtype)
-    lix, liy = int(lix), int(liy)
-    if not on_card(where, beta, refl, pulse):
-        return fdtd_sim_reference(params, beta, refl, pulse, lix, liy,
-                                  state_dtype)
-    err, rec, acc = _launch_fdtd_sim(params, beta, refl, pulse,
-                                     [(lix, liy)], state_dtype, mode="step")
-    kernels.check(err, where)
-    fdtd_sim_per_step.launches += 1
-    onset, fx, fy, ed, ew, et = (a[0] for a in acc)
-    return (FdtdResult(pressure=rec[0], onset=onset, flux_x=fx, flux_y=fy),
-            (ed, ew, et))
-
-
 # ------------------------------------------------------------- B2 moments
 # The card's B2 (csrc/moments.cu): a launch covers up to
 # MOMENTS_MAX_ENTRIES recordings; a one-warp block owns a tile of
-# MOMENTS_TILE consecutive cells of one of them. MOMENTS_DIRECT_TILE is the
-# block of the thread-a-cell design kept as a probe (rt60_moments_probe).
+# MOMENTS_TILE consecutive cells of one of them.
 MOMENTS_TILE = 32
-MOMENTS_DIRECT_TILE = 128
 # rows (time steps) of a chunk of the kernel's walk (csrc/moments.cu kChunk)
 MOMENTS_CHUNK = 16
 MOMENTS_MAX_ENTRIES = 64
-# the probe's designs (the kernel's, the thread-a-cell design it replaced,
-# and the logarithms spread over a 128-thread block) and modes (everything,
-# no logarithms: the loads and sums, no loads: the logarithms and sums on
-# samples made in registers)
-MOMENTS_PROBE_DESIGNS = ("warp", "direct", "spread")
+# the probe's modes (everything, no logarithms: the loads and sums, no
+# loads: the logarithms and sums on samples made in registers)
 MOMENTS_PROBE_MODES = ("full", "no_log", "no_load")
 
 
@@ -313,26 +273,24 @@ class MomentsRow(NamedTuple):
     aligned: bool
 
 
-def moments_table(entries, tile: int = MOMENTS_TILE):
+def moments_table(entries):
     """The tiling of one B2 launch over recordings given as (cells,
     element bytes, address of the first sample): the launch's blocks in
-    entry order, ``tile`` cells each, an entry's last block holding what is
-    left. Block b belongs to the last entry whose ``tile0`` is at or below
-    b (the kernel's lookup) and covers its cells [(b - tile0) * tile,
-    min(cells, (b - tile0 + 1) * tile)). An entry is aligned when its first
-    sample and its rows (cells x element bytes) are 16-byte aligned; the
-    kernel reads a row that is not from the 16-byte words covering it.
-    Returns ([MomentsRow], total blocks). Plain integers, no device."""
-    tile = int(tile)
-    if tile < 1:
-        raise ValueError(f"moments_table: tile {tile} must be >= 1")
+    entry order, :data:`MOMENTS_TILE` cells each, an entry's last block
+    holding what is left. Block b belongs to the last entry whose ``tile0``
+    is at or below b (the kernel's lookup) and covers its cells
+    [(b - tile0) * MOMENTS_TILE, min(cells, (b - tile0 + 1) *
+    MOMENTS_TILE)). An entry is aligned when its first sample and its rows
+    (cells x element bytes) are 16-byte aligned; the kernel reads a row
+    that is not from the 16-byte words covering it. Returns ([MomentsRow],
+    total blocks). Plain integers, no device."""
     rows, tile0 = [], 0
     for cells, elem, addr in entries:
         cells, elem, addr = int(cells), int(elem), int(addr)
         if cells < 1 or elem < 1:
             raise ValueError(f"moments_table: an entry of {cells} cells of "
                              f"{elem} bytes")
-        tiles = -(-cells // tile)
+        tiles = -(-cells // MOMENTS_TILE)
         rows.append(MomentsRow(tile0, tiles,
                                addr % 16 == 0 and cells * elem % 16 == 0))
         tile0 += tiles
@@ -381,7 +339,7 @@ def _launch_moments(where: str, params: GridParams, recs, onsets,
                     probe=None):
     """B2 on the card over [T, X_i, Y_i] recordings of one type and their
     [X_i, Y_i] onsets, one launch per :data:`MOMENTS_MAX_ENTRIES` of them.
-    ``probe``: (design, mode) of :func:`rt60_moments_probe`. Returns
+    ``probe``: a mode of :func:`rt60_moments_probe`. Returns
     (s, launches): s [2, sum of X_i * Y_i], each recording's s0 and s1 in
     turn along the second axis."""
     recs = [r.contiguous() for r in recs]
@@ -392,8 +350,6 @@ def _launch_moments(where: str, params: GridParams, recs, onsets,
     T = params.response_length
     dry_n1, end, log10_scale = moment_scalars(params)
     bf16 = int(recs[0].dtype == torch.bfloat16)
-    tile = (MOMENTS_DIRECT_TILE if probe is not None and probe[0] == "direct"
-            else MOMENTS_TILE)
     outs = _split(s, onsets)
     lib = kernels.library()
     launches = 0
@@ -403,7 +359,7 @@ def _launch_moments(where: str, params: GridParams, recs, onsets,
             part = range(g, min(g + MOMENTS_MAX_ENTRIES, len(recs)))
             rows, tiles = moments_table(
                 [(cells[i], recs[i].element_size(), recs[i].data_ptr())
-                 for i in part], tile)
+                 for i in part])
             table = (kernels.MomentsEntry * len(rows))()
             for e, (i, row) in enumerate(zip(part, rows)):
                 table[e] = kernels.MomentsEntry(
@@ -416,8 +372,7 @@ def _launch_moments(where: str, params: GridParams, recs, onsets,
                 err = lib.pv_rt60_moments(*args, stream)
             else:
                 err = lib.pv_rt60_moments_probe(
-                    *args, MOMENTS_PROBE_DESIGNS.index(probe[0]),
-                    MOMENTS_PROBE_MODES.index(probe[1]), stream)
+                    *args, MOMENTS_PROBE_MODES.index(probe), stream)
             kernels.check(err, where)
             launches += 1
     return s, launches
@@ -486,24 +441,20 @@ def rt60_moments_many(params: GridParams, recs, onsets):
 
 
 def rt60_moments_probe(params: GridParams, recs, onsets,
-                       design: str = "warp", mode: str = "full"):
-    """B2's card kernel with a probe's design and mode, for
-    ``chip_smoke.py``; the engine never calls it, and it counts in no
-    wrapper's ``launches``. ``design``: one of
-    :data:`MOMENTS_PROBE_DESIGNS`, ``"warp"`` the kernel's; ``mode``: one
-    of :data:`MOMENTS_PROBE_MODES` (the outputs are the moments in
-    ``"full"`` only). Arguments and return as :func:`rt60_moments_many`;
-    CUDA tensors only."""
+                       mode: str = "full"):
+    """B2's card kernel in a probe's mode, for ``chip_smoke.py``; the
+    engine never calls it, and it counts in no wrapper's ``launches``.
+    ``mode``: one of :data:`MOMENTS_PROBE_MODES` (the outputs are the
+    moments in ``"full"`` only). Arguments and return as
+    :func:`rt60_moments_many`; CUDA tensors only."""
     where = "rt60_moments_probe"
     recs, onsets = _check_many(where, params, recs, onsets)
-    if (design not in MOMENTS_PROBE_DESIGNS
-            or mode not in MOMENTS_PROBE_MODES):
-        raise ValueError(f"{where}: no design {design!r} or mode {mode!r}")
+    if mode not in MOMENTS_PROBE_MODES:
+        raise ValueError(f"{where}: no mode {mode!r}")
     if not on_card(where, *recs, *onsets):
         raise ValueError(f"{where}: needs CUDA tensors (a probe of the "
                          f"card's kernel), got {recs[0].device}")
-    s, _ = _launch_moments(where, params, recs, onsets,
-                           probe=(design, mode))
+    s, _ = _launch_moments(where, params, recs, onsets, probe=mode)
     return _split(s, onsets)
 
 
@@ -539,12 +490,10 @@ def simulate_moments_fused_batch(params: GridParams, beta, refl, pulse,
 
 
 # Grids of more than this many solver cells (nx * ny) take the tiled route
-# (B3 + B4, ops/fdtd_tiled.py) whatever else holds; at or below it batches
-# of listeners (pipeline_auto_batch, ops/batch.py), bf16 passes and the
-# plain versions stay on B1 (its cluster mode) + B2, and a mesh's shards on
-# B5 (parallel/solver_fused.py). It is also the most B1's cluster mode
-# holds, so the route sends B1 no grid it steps one launch at a time: one
-# batched B1 pass of four views at 192^2 beats four B3 passes.
+# (B3 + B4, ops/fdtd_tiled.py) whatever else holds, and a mesh's shards B6
+# (parallel/solver_fused.py). It is the most B1's cluster holds
+# (CLUSTER_CELLS), and one batched B1 pass of four views at 192^2 beats four
+# B3 passes.
 TILED_MIN_CELLS = 192 * 192
 # One float32 listener on the card takes the tiled route from this many
 # cells, the smallest size swept: B3 + B4 spread the pass over every SM and
@@ -573,21 +522,12 @@ def route_tiled(cells: int, listeners: int, state_dtype,
             and cells >= TILED_SINGLE_MIN_CELLS)
 
 
-def _use_tiled(params: GridParams) -> bool:
-    return params.nx * params.ny > TILED_MIN_CELLS
-
-
-def _single_tiled(params: GridParams, beta, state_dtype) -> bool:
-    return route_tiled(params.nx * params.ny, 1, state_dtype,
-                       beta.device.type == "cuda")
-
-
 def simulate_auto(params: GridParams, beta, refl, pulse,
                   lix: int, liy: int) -> FdtdResult:
-    """One float32 simulation pass on the fields' device, routed by
-    :func:`route_tiled`: B3 above :data:`TILED_MIN_CELLS` cells and, on the
-    card, from :data:`TILED_SINGLE_MIN_CELLS`; B1 otherwise."""
-    if _single_tiled(params, beta, torch.float32):
+    """One float32 simulation pass on the fields' device, B3 or B1 as
+    :func:`route_tiled` routes one listener."""
+    if route_tiled(params.nx * params.ny, 1, torch.float32,
+                   beta.device.type == "cuda"):
         res, _ = fdtd_tiled.fdtd_sim_tiled(params, beta, refl, pulse, lix, liy)
     else:
         res, _ = fdtd_sim(params, beta, refl, pulse, lix, liy)
@@ -600,19 +540,18 @@ def pipeline_auto(params: GridParams, beta, refl, pulse, lix: int, liy: int,
                   compute_directions: bool = True,
                   state_dtype=torch.float32
                   ) -> tuple[FdtdResult, AnalyzerResults]:
-    """Full pass on the fields' device, routed by :func:`route_tiled`: B3
-    + B4 above :data:`TILED_MIN_CELLS` cells and, for float32 state on the
-    card, from :data:`TILED_SINGLE_MIN_CELLS`; B1 + B2 otherwise. Then
-    parameter assembly and, unless ``compute_directions`` is False, DOA.
-    Returns (FdtdResult, AnalyzerResults); the recording is the exact [T,
-    nx, ny] buffer the sim kernel wrote. ``state_dtype`` picks B1's wave
-    state; the tiled route runs float32 whatever it is, as the JAX
-    package's does, so it takes no bf16 pass at or below TILED_MIN_CELLS.
+    """Full pass on the fields' device, B3 + B4 or B1 + B2 as
+    :func:`route_tiled` routes one listener, then parameter assembly and,
+    unless ``compute_directions`` is False, DOA. Returns (FdtdResult,
+    AnalyzerResults); the recording is the exact [T, nx, ny] buffer the sim
+    kernel wrote. ``state_dtype`` picks B1's wave state; the tiled route
+    runs float32 whatever it is, as the JAX package's does.
 
     Counts one solver pass and one view in the step's ``route.passes`` and
     ``route.views`` counters, and a pass on B3 + B4 in
     ``route.tiled_passes``."""
-    if _single_tiled(params, beta, state_dtype):
+    if route_tiled(params.nx * params.ny, 1, state_dtype,
+                   beta.device.type == "cuda"):
         res, moments = fdtd_tiled.simulate_moments_tiled(
             params, beta, refl, pulse, lix, liy)
         count("route.tiled_passes")
@@ -634,20 +573,18 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     """Full pass for B listeners: AnalyzerResults with a leading [B] axis
     on every grid; the recordings are dropped.
 
-    Up to :data:`TILED_MIN_CELLS` cells the listeners run together in the
-    batched kernels (:func:`simulate_moments_fused_batch`: one B1 pass, one
-    B2 launch). Above it each listener runs its own B3 + B4 pass (float32),
-    as the JAX package's ``lax.map`` does, and its recording is freed before
-    the next pass starts, so the route holds one recording at a time. On
-    either route one ``analyze_moments`` call then assembles every view (on
-    a card two launches for all of them).
+    On B1 + B2 (as :func:`route_tiled` routes B listeners) the listeners
+    run together in the batched kernels (:func:`simulate_moments_fused_batch`:
+    one B1 pass, one B2 launch). On the tiled route each listener runs its
+    own B3 + B4 pass (float32), as the JAX package's ``lax.map`` does, and
+    its recording is freed before the next pass starts, so the route holds
+    one recording at a time. On either route one ``analyze_moments`` call
+    then assembles every view (on a card two launches for all of them).
 
     The step's ``route.passes`` counter counts the solver passes (1 on the
     batched route, B on the tiled one, also counted in
     ``route.tiled_passes``) and ``route.views`` the B views; on the tiled
-    route each view's pass runs inside a ``view`` span. The route is
-    :data:`TILED_MIN_CELLS`' alone: :func:`route_tiled`'s single-listener
-    threshold does not apply to a batch.
+    route each view's pass runs inside a ``view`` span.
 
     ``lcells``: host [B, 2] listener cells; ``lpos``: B listener world
     positions (x, z), float32 values.
@@ -657,7 +594,8 @@ def pipeline_auto_batch(params: GridParams, beta, refl, pulse, lcells,
     if len(lpos) != len(cells):
         raise ValueError(f"pipeline_auto_batch: {len(cells)} listener cells "
                          f"but {len(lpos)} positions")
-    if not _use_tiled(params):
+    if not route_tiled(params.nx * params.ny, len(cells), state_dtype,
+                       beta.device.type == "cuda"):
         res, mom = simulate_moments_fused_batch(params, beta, refl, pulse,
                                                 cells, state_dtype)
         count("route.passes")

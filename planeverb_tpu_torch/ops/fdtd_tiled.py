@@ -23,10 +23,8 @@ fields [nx, ny]. Dispatch is as in ``ops/fdtd_fused.py``: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version, any
 other device raises, and nothing falls back. Each wrapper counts its
 launches in its ``launches`` attribute (one per call);
-``fdtd_fused.reset_launch_counts`` resets them. ``fdtd_fused.pipeline_auto``
-routes grids above ``fdtd_fused.TILED_MIN_CELLS`` cells here and, on the
-card, one float32 listener from ``fdtd_fused.TILED_SINGLE_MIN_CELLS``
-(``fdtd_fused.route_tiled``).
+``fdtd_fused.reset_launch_counts`` resets them. ``fdtd_fused.route_tiled``
+decides which passes come here.
 """
 
 from __future__ import annotations

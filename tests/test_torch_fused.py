@@ -115,33 +115,45 @@ def test_other_devices_raise(case):
 @pytest.mark.parametrize("dtype", fdtd_fused.STATE_DTYPES)
 @pytest.mark.parametrize("B", [1, 4])
 def test_b1_mode_cluster_up_to_tiled_min_cells(nx, ny, dtype, B):
-    """B1 takes its cluster mode (one launch a pass) for every grid the
-    engine routes to it: every shape of at most TILED_MIN_CELLS cells,
-    thin ones included, float32 and bf16, any number of listeners. The
-    cluster holds that many cells."""
+    """B1's one launch a pass holds every grid the engine routes to it:
+    every shape of at most TILED_MIN_CELLS cells, thin ones included,
+    float32 and bf16, any number of listeners, none of which the route
+    sends to the tiled kernels on the CPU."""
     assert nx * ny <= fdtd_fused.TILED_MIN_CELLS <= fdtd_fused.CLUSTER_CELLS
-    assert fdtd_fused.b1_mode(nx, ny, dtype, B) == "cluster"
+    assert not fdtd_fused.route_tiled(nx * ny, B, dtype, False)
+    assert fdtd_fused.b1_fits(nx, ny)
 
 
 @pytest.mark.parametrize("nx,ny", [(193, 192), (1, 192 * 192 + 1),
                                    (459, 459), (964, 964)])
 @pytest.mark.parametrize("B", [1, 4])
-def test_b1_mode_per_step_above(nx, ny, B):
-    assert fdtd_fused.b1_mode(nx, ny, torch.float32, B) == "step"
-    assert fdtd_fused.b1_mode(nx, ny, torch.bfloat16, B) == "step"
+def test_b1_mode_per_step_above(case, nx, ny, B):
+    """Above the cluster's capacity the card's launcher refuses the pass,
+    in float32 and bf16, before it allocates or loads anything, and names
+    the tiled kernels; the route sends every such grid there."""
+    p, (_, _, pl), _, _ = case
+    q = dataclasses.replace(p, grid_x=nx - 1, grid_y=ny - 1)
+    field = torch.zeros((nx, ny))
+    cells = [(0, 0)] * B
+    assert not fdtd_fused.b1_fits(nx, ny)
+    for dtype in fdtd_fused.STATE_DTYPES:
+        assert fdtd_fused.route_tiled(nx * ny, B, dtype, True)
+        with pytest.raises(ValueError, match="fdtd_sim_tiled"):
+            fdtd_fused._launch_fdtd_sim("fdtd_sim_batch", q, field, field,
+                                        pl, cells, dtype)
 
 
 @pytest.mark.parametrize("threshold", [0, 96 * 96, 10 ** 9])
 def test_b1_mode_ignores_the_route(monkeypatch, threshold):
-    """B1's mode follows the cluster's capacity (CLUSTER_CELLS), not the
-    route's TILED_MIN_CELLS: moving the route's threshold moves no
-    mode."""
+    """What B1 holds follows the cluster's capacity (CLUSTER_CELLS), not
+    the route's TILED_MIN_CELLS: moving the route's threshold moves
+    nothing B1 holds."""
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", threshold)
     n = fdtd_fused.CLUSTER_CELLS
-    assert fdtd_fused.b1_mode(1, n, torch.float32, 1) == "cluster"
-    assert fdtd_fused.b1_mode(1, n + 1, torch.float32, 1) == "step"
-    assert fdtd_fused.b1_mode(192, 192, torch.bfloat16, 4) == "cluster"
-    assert fdtd_fused.b1_mode(459, 459, torch.float32, 4) == "step"
+    assert fdtd_fused.b1_fits(1, n)
+    assert not fdtd_fused.b1_fits(1, n + 1)
+    assert fdtd_fused.b1_fits(192, 192)
+    assert not fdtd_fused.b1_fits(459, 459)
 
 
 def test_device_kernels_match_the_library_enum():
@@ -169,35 +181,26 @@ def test_device_kernels_match_the_library_enum():
     assert names == expect
 
 
-def test_b1_mode_rejects_what_it_has_no_mode_for():
-    with pytest.raises(ValueError, match="no mode"):
-        fdtd_fused.b1_mode(192, 192, torch.float16, 1)
-    with pytest.raises(ValueError, match="no mode"):
-        fdtd_fused.b1_mode(192, 192, torch.float32, 0)
-    with pytest.raises(ValueError, match="no mode"):
-        fdtd_fused.b1_mode(0, 192, torch.float32, 1)
+def test_b1_mode_rejects_what_it_has_no_mode_for(case):
+    """B1's wrappers refuse a state type it has no kernel for and a batch
+    of no listeners."""
+    p, (b, r, pl), (lix, liy), _ = case
+    with pytest.raises(ValueError, match="state_dtype"):
+        fdtd_fused.fdtd_sim(p, b, r, pl, lix, liy, torch.float16)
+    with pytest.raises(ValueError, match="state_dtype"):
+        fdtd_fused.fdtd_sim_batch(p, b, r, pl, [(lix, liy)], torch.float16)
+    with pytest.raises(ValueError, match="B >= 1"):
+        fdtd_fused.fdtd_sim_batch(p, b, r, pl, [])
 
 
 def test_calibration_grids_take_the_cluster_mode():
     """Every calibration grid (at most CAL_SIZE_M square, up to 750 Hz)
-    fits the cluster mode."""
+    fits B1's cluster."""
     from planeverb_tpu_torch.core import free_grid
 
     for res in (275, 500, 750):
         p = tcfg.compute_grid_params(tcfg.PlaneverbConfig(
             free_grid.CAL_SIZE_M, free_grid.CAL_SIZE_M, res))
-        assert fdtd_fused.b1_mode(p.nx, p.ny, torch.float32, 1) == "cluster"
+        assert fdtd_fused.b1_fits(p.nx, p.ny)
 
 
-def test_per_step_wrapper_takes_plain_path_on_cpu(case):
-    p, (b, r, pl), (lix, liy), _ = case
-    fdtd_fused.reset_launch_counts()
-    for dtype in fdtd_fused.STATE_DTYPES:
-        got = fdtd_fused.fdtd_sim_per_step(p, b, r, pl, lix, liy, dtype)
-        ref = fdtd_fused.fdtd_sim_reference(p, b, r, pl, lix, liy, dtype)
-        for a, g in zip((*ref[0], *ref[1]), (*got[0], *got[1])):
-            assert torch.equal(a, g)
-    assert fdtd_fused.fdtd_sim_per_step.launches == 0
-    with pytest.raises(ValueError, match="meta"):
-        fdtd_fused.fdtd_sim_per_step(p, b.to("meta"), r.to("meta"),
-                                     pl.to("meta"), lix, liy)

@@ -7,8 +7,8 @@ unaligned rows. Here:
 
   - (a) ``moments_table``, the launch's tiling (plain integers): every cell
     of every recording covered exactly once by the kernel's block lookup,
-    and each recording's alignment flag, over ragged shapes, B = 1 and 4,
-    float32 and bf16, and the tiles the launcher takes;
+    and each recording's alignment flag, over ragged shapes and the edges
+    of a tile, B = 1 and 4, float32 and bf16;
   - (b) the new wrapper's plain path over several recordings
     ``torch.equal`` to ``rt60_moments_reference`` on each, and held to the
     JAX package's B2 (``fdtd_pallas.py::_moments_kernel`` through
@@ -51,6 +51,11 @@ CFG = tcfg.PlaneverbConfig(10.0, 10.0, 275)
 CUTS = ((slice(0, 17), slice(0, 23)), (slice(0, 17), slice(23, 29)),
         (slice(17, 29), slice(0, 29)))
 SHAPES = ((29, 29), (17, 23), (96, 96), (48, 192))
+# recordings at the edges of a 32-cell tile: one cell, one short of a tile,
+# one over, whole tiles (rows 16-byte aligned) and one short of them
+EDGES = ((1, 1), (1, 31), (1, 33), (32, 32), (33, 31))
+# the shapes whose rows are 16-byte multiples in float32 and bf16
+ALIGNED = ((96, 96), (48, 192), (32, 32))
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -98,19 +103,18 @@ def _cells_of(rows, cells, total, tile):
 
 
 # --------------------------------------------------------- (a) the tiling
-@pytest.mark.parametrize("tile", [fdtd_fused.MOMENTS_TILE,
-                                  fdtd_fused.MOMENTS_DIRECT_TILE],
-                         ids=["ring", "direct"])
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shapes", [*((s,) for s in SHAPES), SHAPES],
-                         ids=[*(f"{x}x{y}" for x, y in SHAPES), "mixed"])
-def test_table_covers_every_cell_once(shapes, dtype, B, tile):
+@pytest.mark.parametrize("shapes", [*((s,) for s in SHAPES + EDGES), SHAPES],
+                         ids=[*(f"{x}x{y}" for x, y in SHAPES + EDGES),
+                              "mixed"])
+def test_table_covers_every_cell_once(shapes, dtype, B):
     """Every cell of every recording is read by exactly one block, no
     block is empty, and the flag says whether every row of a recording
     starts 16-byte aligned (its first sample and X * Y * bytes), for B
-    recordings of each shape: the [B, T, X, Y] batch's views and, from an
-    odd offset, views that start mid-word."""
+    recordings of each shape (also at a tile's edges): the [B, T, X, Y]
+    batch's views and, from an odd offset, views that start mid-word."""
+    tile = fdtd_fused.MOMENTS_TILE
     recs, expect = [], []
     for nx, ny in shapes:
         batch = torch.zeros((B, 3, nx, ny), dtype=dtype)
@@ -118,13 +122,13 @@ def test_table_covers_every_cell_once(shapes, dtype, B, tile):
         shifted = torch.zeros(3 * nx * ny + 1, dtype=dtype)[1:]
         recs.append(shifted.view(3, nx, ny))
         # 29x29 and 17x23 rows are not 16-byte multiples in either type,
-        # 96x96 and 48x192 rows are; the shifted view starts mid-word
+        # 96x96, 48x192 and 32x32 rows are; the shifted view starts mid-word
         rows_ok = (nx * ny * batch.element_size()) % 16 == 0
-        assert rows_ok == ((nx, ny) in ((96, 96), (48, 192)))
+        assert rows_ok == ((nx, ny) in ALIGNED)
         expect.extend([rows_ok and r.data_ptr() % 16 == 0
                        for r in batch.unbind(0)] + [False])
     entries = [(r[0].numel(), r.element_size(), r.data_ptr()) for r in recs]
-    rows, total = fdtd_fused.moments_table(entries, tile)
+    rows, total = fdtd_fused.moments_table(entries)
     cells = [c for c, _, _ in entries]
     assert total == sum(-(-c // tile) for c in cells)
     for e, seen in enumerate(_cells_of(rows, cells, total, tile)):
@@ -133,12 +137,12 @@ def test_table_covers_every_cell_once(shapes, dtype, B, tile):
     assert [r.tiles for r in rows] == [-(-c // tile) for c in cells]
     # a batch's first recording starts where the allocation does
     assert all(expect[i * (B + 1)] for i, s in enumerate(shapes)
-               if s in ((96, 96), (48, 192)))
+               if s in ALIGNED)
 
 
 def test_table_rejects_what_it_cannot_tile():
-    with pytest.raises(ValueError, match="tile"):
-        fdtd_fused.moments_table([(841, 4, 0)], 0)
+    with pytest.raises(ValueError, match="entry"):
+        fdtd_fused.moments_table([(841, 0, 0)])
     with pytest.raises(ValueError, match="entry"):
         fdtd_fused.moments_table([(0, 4, 0)])
     assert fdtd_fused.moments_table([]) == ([], 0)
@@ -226,7 +230,7 @@ def test_many_rejects_bad_arguments():
         many(p, [rec.to("meta")], [onset.to("meta")])
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fdtd_fused.rt60_moments_probe(p, [rec], [onset])
-    with pytest.raises(ValueError, match="no design"):
+    with pytest.raises(ValueError, match="no mode"):
         fdtd_fused.rt60_moments_probe(p, [rec], [onset], mode="fast")
     assert many.launches == 0
 
@@ -251,7 +255,6 @@ def test_entry_mirrors_the_kernel():
         n for n, _ in kernels.MomentsEntry._fields_]
     assert ctypes.sizeof(kernels.MomentsEntry) == 48
     for const, value in (("kTile", fdtd_fused.MOMENTS_TILE),
-                         ("kDirectTile", fdtd_fused.MOMENTS_DIRECT_TILE),
                          ("kChunk", fdtd_fused.MOMENTS_CHUNK),
                          ("kMaxEntries", fdtd_fused.MOMENTS_MAX_ENTRIES)):
         m = re.search(r"constexpr int " + const + r" = (\d+);", source)

@@ -75,11 +75,11 @@ def test_four_tiled_views_equal_the_plain_reference(tiled, publish):
 def card_rule(monkeypatch):
     """The single-listener rule as the card applies it, from 0 cells: every
     float32 pass of one view goes to B3 + B4 (in several windows)."""
+    real = fdtd_fused.route_tiled
     monkeypatch.setattr(fdtd_fused, "TILED_SINGLE_MIN_CELLS", 0)
-    monkeypatch.setattr(fdtd_fused, "_single_tiled",
-                        lambda params, beta, state_dtype: fdtd_fused
-                        .route_tiled(params.nx * params.ny, 1, state_dtype,
-                                     True))
+    monkeypatch.setattr(fdtd_fused, "route_tiled",
+                        lambda cells, listeners, dtype, card:
+                        real(cells, listeners, dtype, True))
     monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
     monkeypatch.setattr(fdtd_tiled, "HALO", 4)
 

@@ -30,6 +30,9 @@ from planeverb_tpu_torch.convert import fields_from_numpy
 from planeverb_tpu_torch.ops import fdtd_fused, fdtd_tiled
 
 CFG = tcfg.PlaneverbConfig(10.0, 10.0, 275)
+F32, BF16 = torch.float32, torch.bfloat16
+HEADLINE = 192 * 192
+SINGLE = fdtd_fused.TILED_SINGLE_MIN_CELLS
 # (T, tile, halo); with 8 x 8 tiles the listener cell (14, 14) lies 2 cells
 # from a tile edge, inside the halo of its neighbours' windows
 CASES = [(70, (8, 8), 4), (33, (16, 8), 3), (64, (24, 16), 8),
@@ -182,9 +185,11 @@ def test_routing_threshold(monkeypatch):
     TILED_MIN_CELLS on the CPU, the two routes bit-equal."""
     cells = {s: tcfg.compute_grid_params(tcfg.PlaneverbConfig(s, s, 750))
              for s in (25.0, 60.0, 126.0)}
-    assert not fdtd_fused._use_tiled(cells[25.0])
-    assert fdtd_fused._use_tiled(cells[60.0])
-    assert fdtd_fused._use_tiled(cells[126.0])
+    for size, tiled in ((25.0, False), (60.0, True), (126.0, True)):
+        q = cells[size]
+        for listeners, dtype in ((1, F32), (4, F32), (1, BF16)):
+            assert fdtd_fused.route_tiled(q.nx * q.ny, listeners, dtype,
+                                          False) is tiled
 
     p, arrays, (lix, liy) = _setup(33)
     b, r, pl = fields_from_numpy(*arrays, device="cpu")
@@ -203,11 +208,6 @@ def test_routing_threshold(monkeypatch):
     assert calls == [p]
     for a, g in zip((*untiled[0], *untiled[1]), (*tiled[0], *tiled[1])):
         assert torch.equal(a, g)
-
-
-F32, BF16 = torch.float32, torch.bfloat16
-HEADLINE = 192 * 192
-SINGLE = fdtd_fused.TILED_SINGLE_MIN_CELLS
 
 
 @pytest.mark.parametrize("cells,listeners,dtype,card,tiled", [
@@ -229,37 +229,86 @@ def test_route_tiled_rule(cells, listeners, dtype, card, tiled):
     assert fdtd_fused.route_tiled(cells, listeners, dtype, card) is tiled
 
 
+def _spy_solvers(monkeypatch):
+    """Every B3 and B1 pass the routers run, by name, in order."""
+    calls = []
+    for module, name in ((fdtd_tiled, "fdtd_sim_tiled"),
+                         (fdtd_fused, "fdtd_sim"),
+                         (fdtd_fused, "fdtd_sim_batch")):
+        def wrapped(*args, _real=getattr(module, name), _name=name,
+                    **kwargs):
+            calls.append(_name)
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
 def test_single_listener_rule_leaves_batches_alone(monkeypatch):
-    """With the rule sending every pass to B3 + B4, pipeline_auto and
-    simulate_auto go tiled, while pipeline_auto_batch and ops/batch.py's
-    batched branch keep the batched B1 under TILED_MIN_CELLS."""
+    """With the single-listener rule sending every pass of one float32
+    listener to B3 + B4 (route_tiled as on the card, from 0 cells),
+    pipeline_auto and simulate_auto go tiled, while pipeline_auto_batch
+    and ops/batch.py keep the batched B1 for two listeners."""
     from planeverb_tpu_torch.ops import batch as tbatch
 
     p, arrays, (lix, liy) = _setup(19)
     b, r, pl = fields_from_numpy(*arrays, device="cpu")
-    calls = []
-
-    def spy(name):
-        real = getattr(fdtd_tiled, name)
-
-        def wrapped(*args, **kwargs):
-            calls.append(name)
-            return real(*args, **kwargs)
-        monkeypatch.setattr(fdtd_tiled, name, wrapped)
-
-    spy("fdtd_sim_tiled")
-    spy("simulate_moments_tiled")
-    monkeypatch.setattr(fdtd_fused, "route_tiled", lambda *a: True)
+    calls = _spy_solvers(monkeypatch)
+    real = fdtd_fused.route_tiled
+    monkeypatch.setattr(fdtd_fused, "TILED_SINGLE_MIN_CELLS", 0)
+    monkeypatch.setattr(fdtd_fused, "route_tiled",
+                        lambda cells, listeners, dtype, card:
+                        real(cells, listeners, dtype, True))
     cells = [(lix, liy), (lix - 2, liy + 1)]
     out = fdtd_fused.pipeline_auto_batch(p, b, r, pl, cells, 0.02,
                                          [(5.0, 5.0), (4.0, 5.5)])
     res = tbatch.simulate_listeners_auto(p, b, r, pl, [lix, lix - 2],
                                          [liy, liy + 1])
-    assert calls == [] and out.occlusion.shape[0] == res.onset.shape[0] == 2
+    assert calls == ["fdtd_sim_batch"] * 2
+    assert out.occlusion.shape[0] == res.onset.shape[0] == 2
     fdtd_fused.simulate_auto(p, b, r, pl, lix, liy)
     fdtd_fused.pipeline_auto(p, b, r, pl, lix, liy, 0.02, 5.0, 5.0)
-    assert calls == ["fdtd_sim_tiled", "simulate_moments_tiled",
-                     "fdtd_sim_tiled"]
+    assert calls[2:] == ["fdtd_sim_tiled", "fdtd_sim_tiled"]
+
+
+def _run_router(name, p, b, r, pl, cells):
+    from planeverb_tpu_torch.ops import batch as tbatch
+
+    (lix, liy), lpos = cells[0], [(5.0, 5.0), (4.0, 5.5)]
+    if name == "pipeline_auto":
+        return fdtd_fused.pipeline_auto(p, b, r, pl, lix, liy, 0.02,
+                                        *lpos[0])
+    if name == "pipeline_auto_batch":
+        return fdtd_fused.pipeline_auto_batch(p, b, r, pl, cells, 0.02,
+                                              lpos)
+    if name == "simulate_auto":
+        return fdtd_fused.simulate_auto(p, b, r, pl, lix, liy)
+    return tbatch.simulate_listeners_auto(p, b, r, pl,
+                                          [c[0] for c in cells],
+                                          [c[1] for c in cells])
+
+
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "b1"])
+@pytest.mark.parametrize("router,views", [
+    ("pipeline_auto", 1), ("pipeline_auto_batch", 2), ("simulate_auto", 1),
+    ("simulate_listeners_auto", 2)])
+def test_routers_run_the_route_they_are_told(monkeypatch, router, views,
+                                             tiled):
+    """Each of the four routers asks route_tiled, with its own listener
+    count, and runs what it answers: one B3 pass a listener, or B1 (one
+    batched pass for several listeners)."""
+    p, arrays, (lix, liy) = _setup(19)
+    b, r, pl = fields_from_numpy(*arrays, device="cpu")
+    cells = [(lix, liy), (lix - 2, liy + 1)][:views]
+    asked = []
+    monkeypatch.setattr(fdtd_fused, "route_tiled",
+                        lambda *a: asked.append(a) or tiled)
+    calls = _spy_solvers(monkeypatch)
+    _run_router(router, p, b, r, pl, cells)
+    assert asked == [(p.nx * p.ny, views, F32, False)]
+    if tiled:
+        assert calls == ["fdtd_sim_tiled"] * views
+    else:
+        assert calls == ["fdtd_sim" if views == 1 else "fdtd_sim_batch"]
 
 
 def test_pick_tile():
