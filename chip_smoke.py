@@ -915,6 +915,21 @@ def _large_inputs(pv, voxelize, gaussian_pulse, size, dev, resolution=750):
     return p, beta, refl, pulse, lix, liy
 
 
+def _b3_plan(q) -> tuple:
+    """The round plan (tile_x, tile_y, k) B3 takes for q's field on card 0
+    (``fdtd_tiled.plan_tiled``), and its window-rounds a pass."""
+    import torch
+
+    from planeverb_tpu_torch.ops import fdtd_tiled
+
+    props = torch.cuda.get_device_properties(0)
+    plan = fdtd_tiled.plan_tiled(q.nx, q.ny, q.response_length,
+                                 props.multi_processor_count,
+                                 props.shared_memory_per_block_optin)
+    return plan, fdtd_tiled.window_rounds(q.nx, q.ny, q.response_length,
+                                          plan, props.multi_processor_count)
+
+
 def _across_cards(pv, kernels, dev, card) -> None:
     """``--cards``: the sharded engine on meshes of distinct cards, held to
     the single-card kernels bit for bit."""
@@ -3299,12 +3314,14 @@ def _crossover_phase(pv, dev, label) -> None:
         del tres, tmom
         routed = ("B3 + B4" if fdtd_fused.route_tiled(
             q.nx * q.ny, 1, torch.float32, True) else "B1 + B2")
+        plan, wr = _b3_plan(q)
         print(f"phase 10 crossover {qshape} ({q.nx * q.ny} cells, one "
               f"float32 listener routed to {routed} by route_tiled: "
               f"TILED_SINGLE_MIN_CELLS = "
               f"{fdtd_fused.TILED_SINGLE_MIN_CELLS}, TILED_MIN_CELLS = "
               f"{fdtd_fused.TILED_MIN_CELLS}): B1 + B2 "
-              f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms, ratio "
+              f"{fused_ms:.3f} ms, B3 + B4 {tiled_ms:.3f} ms (B3 plan "
+              f"{plan}, {wr} window-rounds), ratio "
               f"{tiled_ms / fused_ms:.3f}, bit-equal; on B3's recording B4 "
               f"{b4_ms:.3f} ms, B2 {b2_ms:.3f} ms, ratio "
               f"{b4_ms / b2_ms:.3f} ({label}, medians of {CROSSOVER_REPS} "
@@ -3583,13 +3600,13 @@ def main() -> int:
     del ctx, cpu, kres, rres, kacc, racc
     torch.cuda.empty_cache()
 
-    # -- 7. B3 vs its plain version (459^2, 964^2), timed; B3 with its
-    # accumulators forced to global memory (the kernel's mode above ~1100^2)
-    # against the main path's; then rigid outer walls
+    # -- 7. B3 at its round plan vs its plain version and B1's (459^2,
+    # 964^2), timed; B3 with its accumulators forced to global memory (the
+    # kernel's mode above ~1100^2) against the main path's; then rigid
+    # outer walls
     t_phase = time.perf_counter()
     b3 = {}
     recs = {}
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for size in (LARGE, XL):
         q, qb, qr, qp, qx, qy = _large_inputs(pv, voxelize, gaussian_pulse,
                                               size, dev)
@@ -3605,17 +3622,25 @@ def main() -> int:
             k3res, k3acc, r3res, r3acc, f"B3 vs plain {qshape}")
         _require(row["plain_bits"], f"B3 not bit-equal at {qshape}")
         del r3res, r3acc
+        # and B1's plain version (B1's kernel holds no field this large)
+        r1res, r1acc = fdtd_fused.fdtd_sim_reference(q, qb, qr, qp, qx, qy)
+        torch.cuda.synchronize()
+        row["b1_bits"] = all(torch.equal(a, b) for a, b in zip(
+            (*k3res, *k3acc), (*r1res, *r1acc)))
+        _require(row["b1_bits"], f"B3 differs from B1's plain version at "
+                 f"{qshape}")
+        del r1res, r1acc
         if size == LARGE:
             row["plain_ms"] = _once(
                 lambda: fdtd_tiled.fdtd_sim_tiled_reference(
                     q, qb, qr, qp, qx, qy))[0]
         # the accumulators in global memory must give the same bits
-        tile = fdtd_tiled.pick_tile([(q.nx, q.ny)], fdtd_tiled.HALO, n_sm)
+        plan, row["window_rounds"] = _b3_plan(q)
+        row["plan"] = plan
 
         def b3_global():
             return fdtd_tiled.fdtd_sim_tiled_probe(
-                q, qb, qr, qp, qx, qy, tile, fdtd_tiled.HALO,
-                global_acc=True)
+                q, qb, qr, qp, qx, qy, plan[:2], plan[2], global_acc=True)
         gres, gacc = b3_global()
         torch.cuda.synchronize()
         _require(all(torch.equal(a, b) for a, b in zip(
@@ -3632,14 +3657,16 @@ def main() -> int:
         torch.cuda.synchronize()
         _require(torch.isfinite(k3res.pressure).all(),
                  f"B3 recording not finite at {qshape}")
-        print(f"phase 7 B3 fdtd_sim_tiled {qshape} (tile {tile}, halo "
-              f"{fdtd_tiled.HALO}: the whole pass in one cooperative launch, "
+        print(f"phase 7 B3 fdtd_sim_tiled {qshape} (plan_tiled: tile "
+              f"{plan[:2]}, k {plan[2]}, {row['window_rounds']} "
+              f"window-rounds: the whole pass in one cooperative launch, "
               f"device launches {row['device_pass']}; with the accumulators "
               f"in global memory bit-equal, {row['global_ms']:.3f} ms): vs "
               f"plain max rel "
               + ", ".join(f"{k} {v[0]:.3g}" for k, v in row["vs_plain"].items())
               + f", bit-equal {row['plain_bits']}"
-              + f" (bound {REL_TOL:g}, onset equal); B3 {row['ms']:.3f} ms "
+              + f" (bound {REL_TOL:g}, onset equal); bit-equal to B1's "
+              f"plain version {row['b1_bits']}; B3 {row['ms']:.3f} ms "
               f"(median of 3)"
               + (f", plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
                  else "")
@@ -3743,6 +3770,13 @@ def main() -> int:
                          "rt60_moments_tiled_kernel": 1, **ANALYSIS_STEP},
              f"126 m step device launches {xl_step}")
     xp = xctx.params
+    # the step ran B3 at the rule's plan: its window-rounds counter
+    from planeverb_tpu_torch.utils import profiling
+
+    xplan, xwr = _b3_plan(xp)
+    xl_wr = profiling.steps()[-1].counters.get("solver.window_rounds")
+    _require(xl_wr == xwr, f"126 m step window-rounds {xl_wr}, plan {xplan} "
+             f"has {xwr}")
     xouts = [xctx.get_output(e) for e in xeids]
     _require(all(o.valid for o in xouts), xouts)
     cells = xctx._published["cells"]
@@ -3783,7 +3817,8 @@ def main() -> int:
           f"{statistics.median(xev):.3f} ms (CUDA events), "
           f"{statistics.median(xwall):.3f} ms (wall), steps "
           + ", ".join(f"{v:.3f}" for v in xev)
-          + f" ms on {card}; {xtput / 1e9:.3f} G cell-updates/s; peak "
+          + f" ms on {card}; {xtput / 1e9:.3f} G cell-updates/s; B3 plan "
+          f"{xplan}, solver.window_rounds {xl_wr} a step; peak "
           f"device memory {peak_gb:.2f} GB; stages: B3 "
           f"{b3[xshape]['ms']:.3f} ms, B4 {b4[xshape]['ms']:.3f} ms, "
           f"assembly{'' if xctx._lazy_doa else ' + DOA'} {xasm_ms:.3f} ms "
@@ -3935,9 +3970,9 @@ def main() -> int:
                                                         halo=SHARD_HALO),
                 lambda: sharded_impl(margs, slabs=True, moments=False),
                 reps=3)
-        tile = fdtd_tiled.pick_tile(
+        tile = parallel.solver_fused.pick_region_tile(
             [region_block(nx_pad // mshape[0], ny_pad // mshape[1], mshape)]
-            * (mshape[0] * mshape[1]), fdtd_tiled.HALO,
+            * (mshape[0] * mshape[1]),
             torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"phase 11 B5 sharded_round {mshape[0]}x{mshape[1]} mesh of "
               f"cuda:0 {shape} (shards {nx_pad // mshape[0]}x"
@@ -4005,9 +4040,8 @@ def main() -> int:
         lambda: parallel.simulate_sharded_fused(*margs, halo=SHARD_HALO),
         lambda: fdtd_tiled.fdtd_sim_tiled(q, qb, qr, qp, qx, qy), reps=3)
     torch.cuda.empty_cache()
-    tile = fdtd_tiled.pick_tile(
+    tile = parallel.solver_fused.pick_region_tile(
         [region_block(nx_pad // 2, ny_pad // 2, (2, 2), banded=True)] * 4,
-        fdtd_tiled.HALO,
         torch.cuda.get_device_properties(0).multi_processor_count)
     print(f"phase 12 B6 banded_round {qshape} on a 2x2 mesh of cuda:0 "
           f"(shards {nx_pad // 2}x{ny_pad // 2}, halo {SHARD_HALO}, tile "

@@ -45,10 +45,14 @@
 //   write (7.46 GB a pass at 964^2, ~2.2 ms at the HBM rate, the bound),
 //   plus per round the window's reads of p, vx, vy, beta and Y (times the
 //   halo redundancy) and the tile's state written back (and with the
-//   accumulators in global memory their six planes read and written);
-//   rounds of 0 steps (pv_fdtd_sim_tiled_probe's `dry`) take about half a
-//   pass at k = 6 (PERF.md), so those moves and the stepping are of the
-//   same order.
+//   accumulators in global memory their six planes read and written).
+//   The grid barrier makes every round wait for the busiest SM, so a pass
+//   costs its rounds times that SM's windows: the caller chooses the tile
+//   and k by field shape (ops/fdtd_tiled.py plan_tiled; at 964^2 22 x 54
+//   at k = 5, 792 = 6 x 132 windows, no SM stepping an extra window in any
+//   round). There rounds of 0 steps (pv_fdtd_sim_tiled_probe's `dry`) take
+//   about 37 % of a pass, and a window's step is mostly latency: two block
+//   barriers and the shuffles (PERF.md).
 //
 // B4 `rt60_moments_tiled` replaces
 // planeverb_tpu/ops/fdtd_tiled.py::_tiled_moments_kernel.

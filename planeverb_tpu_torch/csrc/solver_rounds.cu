@@ -25,8 +25,9 @@
 // The design is B3's (fdtd_tiled.cu), whose window machinery it shares
 // (windows.cuh):
 //   - One cooperative launch of one block per SM (up to the tiles). The
-//     tiles of every region (B3's tile, 20 x 52 or 20 x 20, with B3's
-//     6-cell border) are numbered one after another; block b takes tiles
+//     tiles of every region (20 x 52 or 20 x 20 with a 6-cell border,
+//     parallel/solver_fused.py REGION_TILES and SUB_ROUND; B3 plans its
+//     own) are numbered one after another; block b takes tiles
 //     b, b + gridDim.x, ... A region's steps run as sub-rounds of at most
 //     6 steps (16 = 6 + 6 + 4), with a grid barrier between them; the
 //     region's state between sub-rounds lives in its own double-buffered

@@ -29,6 +29,8 @@ decides which passes come here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -43,23 +45,16 @@ from planeverb_tpu_torch.ops._common import (barrier_words, check_field,
 from planeverb_tpu_torch.ops.analyzer import Moments
 from planeverb_tpu_torch.ops.fdtd import (FdtdResult, admittance,
                                           fdtd_step_folded)
-from planeverb_tpu_torch.utils.profiling import spanned
+from planeverb_tpu_torch.utils.profiling import count, spanned
 
-__all__ = ["TILES", "HALO", "CHUNK", "RUN", "MAX_THREADS", "block_shape",
-           "pick_tile", "fdtd_sim_tiled", "fdtd_sim_tiled_probe",
+__all__ = ["CHUNK", "RUN", "MAX_THREADS", "K_RANGE", "C_ROUND", "C_STEP",
+           "GLOBAL_ACC_COST", "PLAIN_PLAN", "PLANS", "block_shape",
+           "acc_fits", "plan_cost", "plan_tiled", "window_rounds",
+           "fdtd_sim_tiled", "fdtd_sim_tiled_probe",
            "fdtd_sim_tiled_reference", "rt60_moments_tiled",
            "rt60_moments_tiled_reference", "simulate_moments_tiled",
            "simulate_moments_tiled_reference"]
 
-# Interior tiles the card's kernel chooses from, with HALO the border and
-# steps per round. probe_tiled.py sweeps the tilings (PERF.md has its
-# numbers): on an H100 80GB HBM3 at 700 W a 20 x 52 interior (a 32 x 64
-# window, one 512-thread block per SM) is among the fastest at 459^2 and
-# 964^2 with one k for both (k = 5 and 7 each won at one size), and
-# 20 x 20 (a 32 x 32 window) at 192^2, where 20 x 52 tiles leave most SMs
-# idle. :func:`pick_tile` chooses between them.
-TILES = ((20, 52), (20, 20))
-HALO = 6
 # B4: reverse chunks of CHUNK steps (any chunk gives the same result). In
 # probe_tiled.py's sweeps on the H100, chunks of 32 to 4096 ran within
 # 10 % of B2 at 261^2 to 964^2, chunks of 8 up to 18 % behind it.
@@ -70,6 +65,25 @@ CHUNK = 32
 # per SM.
 RUN = 4
 MAX_THREADS = 512
+# B3's round plan (:func:`plan_tiled`): the round depths k it considers;
+# in window cells (what a round's loads, fold and write-back cost a window
+# cell), a round's fixed cost (its grid barrier and loop) and a window's
+# step (two block barriers and the shuffles: a latency, much the same for
+# any window of up to MAX_THREADS threads); and the cost of a plan whose
+# accumulators stay in global memory against the same plan's in shared
+# memory. C_ROUND and C_STEP are probe_tiled.py's fit over all 111 plans at
+# 192^2, 459^2 and 964^2 on an H100 80GB HBM3 at 700 W: its passes of
+# 0-step rounds give 3.510 us a round and 1.332 ns a window cell, the
+# full passes' rest 0.703 us a window's step; GLOBAL_ACC_COST is the
+# median of its global-memory passes over the same plans' (1.135 to 1.344
+# at 459^2 and 964^2, PERF.md).
+K_RANGE = range(4, 9)
+C_ROUND = 2635
+C_STEP = 528
+GLOBAL_ACC_COST = 1.18
+# The plan the plain version takes without one (its results do not depend
+# on the plan).
+PLAIN_PLAN = (20, 52, 6)
 
 
 def block_shape(tile_x: int, tile_y: int, k: int) -> tuple[int, int]:
@@ -80,27 +94,90 @@ def block_shape(tile_x: int, tile_y: int, k: int) -> tuple[int, int]:
     return lanes, -(-(tile_x + 2 * k) // RUN)
 
 
-def pick_tile(blocks, halo: int, n_sm: int) -> tuple[int, int]:
-    """The tile of :data:`TILES` with the least modelled round time for one
-    launch over the given (rows, cols) blocks (B3: the field; a sharded
-    round: its regions' extended blocks) on a card with ``n_sm`` SMs: the
-    windows the busiest SM steps one after another times the cells of a
-    window. Ties go to the earlier tile."""
-    def cost(tile):
-        tx, ty = tile
-        n = sum(-(-nx // tx) * -(-ny // ty) for nx, ny in blocks)
-        return -(-n // n_sm) * (tx + 2 * halo) * (ty + 2 * halo)
+def _plans() -> tuple[tuple[int, int, int], ...]:
+    """Every (tile_x, tile_y, k) B3's plan chooses from: for each k of
+    :data:`K_RANGE` and each block of whole warps and at most
+    :data:`MAX_THREADS` threads, the largest tile its window holds (a
+    smaller tile in the same block costs as much a window and makes no
+    fewer windows); the widest windows first, which win ties (32 x 64
+    windows ran 3 % faster than 64 x 32 at 964^2, PERF.md)."""
+    out = []
+    for k in K_RANGE:
+        for lanes in range(MAX_THREADS, 31, -32):
+            for runs in range(1, MAX_THREADS // lanes + 1):
+                tx, ty = RUN * runs - 2 * k, lanes - 2 * k
+                if tx >= 1 and ty >= 1:
+                    out.append((tx, ty, k))
+    return tuple(out)
 
-    return min(TILES, key=cost)
+
+PLANS = _plans()
+
+
+def _windows_of(nx: int, ny: int, tx: int, ty: int) -> int:
+    return -(-nx // tx) * -(-ny // ty)
+
+
+def acc_fits(nx: int, ny: int, plan, n_sm: int, smem_optin: int) -> bool:
+    """Whether the card's launcher keeps the plan's accumulators in shared
+    memory (csrc/windows.cuh acc_fits): the block's run and warp edges and a
+    [6][tile cells] float slot for each tile it steps fit the shared memory
+    a block may opt into."""
+    tx, ty, k = plan
+    lanes, runs = block_shape(tx, ty, k)
+    edges = 2 * runs * lanes + 2 * (lanes // 32) * runs * RUN
+    windows = _windows_of(nx, ny, tx, ty)
+    per_block = -(-windows // min(windows, n_sm))
+    return 4 * (edges + per_block * 6 * tx * ty) <= smem_optin
+
+
+def plan_cost(nx: int, ny: int, T: int, plan, n_sm: int,
+              smem_optin: int) -> float:
+    """The modelled time of a B3 pass of T steps over an [nx, ny] field on
+    a card of ``n_sm`` SMs, in window cells: every round waits at the grid
+    barrier for the busiest SM, which loads, steps and writes back its
+    windows one after another. So a pass costs its rounds times (the
+    busiest SM's windows times a block's cells, plus :data:`C_ROUND`), and
+    the busiest SM's windows times T steps of :data:`C_STEP` each (the
+    rounds' steps add up to T); times :data:`GLOBAL_ACC_COST` where the
+    accumulators do not fit shared memory."""
+    tx, ty, k = plan
+    lanes, runs = block_shape(tx, ty, k)
+    busiest = -(-_windows_of(nx, ny, tx, ty) // n_sm)
+    cost = (-(-T // k) * (busiest * lanes * runs * RUN + C_ROUND)
+            + busiest * T * C_STEP)
+    if not acc_fits(nx, ny, plan, n_sm, smem_optin):
+        cost *= GLOBAL_ACC_COST
+    return cost
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tiled(nx: int, ny: int, T: int, n_sm: int,
+               smem_optin: int) -> tuple[int, int, int]:
+    """B3's round plan (tile_x, tile_y, k) for an [nx, ny] field and T
+    steps on a card of ``n_sm`` SMs whose blocks may opt into
+    ``smem_optin`` bytes of shared memory: the plan of :data:`PLANS` with
+    the least :func:`plan_cost`, ties to the earlier one. Cached: the
+    engine asks once a pass."""
+    return min(PLANS, key=lambda plan: plan_cost(nx, ny, T, plan, n_sm,
+                                                   smem_optin))
+
+
+def window_rounds(nx: int, ny: int, T: int, plan, n_sm: int) -> int:
+    """The window-rounds a B3 pass waits for: its rounds times the windows
+    the busiest SM steps in each (the program's ``solver.window_rounds``
+    counter)."""
+    tx, ty, k = plan
+    return -(-T // k) * -(-_windows_of(nx, ny, tx, ty) // n_sm)
 
 
 def _tiling(tile, halo) -> tuple[int, int, int]:
-    """(tile_x, tile_y, k) from a tile (int or (x, y); None: the first of
-    :data:`TILES`) and a halo (None: :data:`HALO`)."""
+    """(tile_x, tile_y, k) from a tile (int or (x, y)) and a halo, each
+    None for :data:`PLAIN_PLAN`'s."""
     if tile is None:
-        tile = TILES[0]
+        tile = PLAIN_PLAN[:2]
     tx, ty = (tile, tile) if isinstance(tile, int) else tuple(tile)
-    k = HALO if halo is None else halo
+    k = PLAIN_PLAN[2] if halo is None else halo
     tx, ty, k = int(tx), int(ty), int(k)
     if min(tx, ty, k) < 1:
         raise ValueError(f"tile {tile} and halo {halo} must be >= 1")
@@ -228,13 +305,14 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
     """One simulation pass in rounds of ``halo`` steps over tiles (B3).
 
     Arguments and returns as ``fdtd_fused.fdtd_sim``; ``tile`` is the
-    interior (int or (x, y)) and ``halo`` the border and steps per round
-    (default :data:`HALO`). Without a tile the card's kernel takes
-    :func:`pick_tile`'s and the plain version the first of :data:`TILES`;
-    the results do not depend on it. On the card the pass is one
-    cooperative launch; a window the kernel cannot hold (more than
-    :data:`MAX_THREADS` threads, :func:`block_shape`) fails at launch and
-    raises.
+    interior (int or (x, y)) and ``halo`` the border and steps per round.
+    Without either the card's kernel takes :func:`plan_tiled`'s plan for
+    the field and the card, and the plain version :data:`PLAIN_PLAN`; the
+    results do not depend on the plan. On the card the pass is one
+    cooperative launch, and it adds its :func:`window_rounds` to the
+    step's ``solver.window_rounds`` counter; a window the kernel cannot
+    hold (more than :data:`MAX_THREADS` threads, :func:`block_shape`)
+    fails at launch and raises.
     """
     where = "fdtd_sim_tiled"
     nx, ny = params.nx, params.ny
@@ -244,13 +322,17 @@ def fdtd_sim_tiled(params: GridParams, beta, refl, pulse, lix: int,
     tx, ty, k = _tiling(tile, halo)
     lix, liy = int(lix), int(liy)
     if on_card(where, beta, refl, pulse):
-        n_sm = torch.cuda.get_device_properties(
-            beta.device).multi_processor_count
-        if tile is None:
-            tx, ty = pick_tile([(nx, ny)], k, n_sm)
+        props = torch.cuda.get_device_properties(beta.device)
+        n_sm = props.multi_processor_count
+        T = params.response_length
+        if tile is None and halo is None:
+            tx, ty, k = plan_tiled(nx, ny, T, n_sm,
+                                   props.shared_memory_per_block_optin)
         out = _launch_fdtd_sim_tiled(params, beta, refl, pulse, lix, liy,
                                      tx, ty, k)
         fdtd_sim_tiled.launches += 1
+        count("solver.window_rounds",
+              window_rounds(nx, ny, T, (tx, ty, k), n_sm))
         return out
     return fdtd_sim_tiled_reference(params, beta, refl, pulse, lix, liy,
                                     tile=(tx, ty), halo=k)

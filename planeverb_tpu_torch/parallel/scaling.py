@@ -293,7 +293,7 @@ def measure_scaling(params, beta, refl, pulse, lix, liy,
     the sweep then uses (n, 1) meshes and clamps the halo so shards satisfy
     the split's bx >= 3 * halo. The JAX module's clamp of the halo to a
     multiple of 16 above 16 is not carried: the port's round kernel runs any
-    halo as sub-rounds of ``ops/fdtd_tiled.HALO`` steps.
+    halo as sub-rounds of ``solver_fused.SUB_ROUND`` steps.
 
     ``devices``: the devices the sweep's meshes take, in order (default:
     every CUDA device; raises where there is none). ``device_counts``

@@ -101,13 +101,35 @@ __all__ = ["Sharded", "RoundLaunch", "fold_planes",
            "banded_round_reference", "device_round_reference",
            "simulate_sharded_fused", "simulate_sharded_reference",
            "simulate_moments_sharded", "simulate_moments_sharded_reference",
-           "pipeline_sharded"]
+           "pipeline_sharded", "REGION_TILES", "SUB_ROUND",
+           "pick_region_tile"]
 
+# A round launch's window tiles and sub-round depth on the card: a round of
+# halo k runs as sub-rounds of at most SUB_ROUND steps, each window a tile
+# of REGION_TILES with a SUB_ROUND-cell border (a 32 x 64 or 32 x 32
+# window), the tiling the halo's fit in parallel/scaling.py
+# (ROUND_OVERHEAD_S) was measured with; B3 plans its own rounds
+# (ops/fdtd_tiled.py plan_tiled). :func:`pick_region_tile` chooses.
+REGION_TILES = ((20, 52), (20, 20))
+SUB_ROUND = 6
 # The tile of B6's plain version's windows when band_rows gives none (the
 # results do not depend on it)
 REFERENCE_TILE = (32, 32)
 # Global coordinates no window reaches: a listener outside the field
 _NOWHERE = -(1 << 30)
+
+
+def pick_region_tile(blocks, n_sm: int) -> tuple[int, int]:
+    """The tile of :data:`REGION_TILES` with the least modelled round time
+    for one launch over the given (rows, cols) extended blocks on a card
+    with ``n_sm`` SMs: the windows the busiest SM steps one after another
+    times the cells of a window. Ties go to the earlier tile."""
+    def cost(tile):
+        tx, ty = tile
+        n = sum(-(-nx // tx) * -(-ny // ty) for nx, ny in blocks)
+        return -(-n // n_sm) * (tx + 2 * SUB_ROUND) * (ty + 2 * SUB_ROUND)
+
+    return min(REGION_TILES, key=cost)
 
 
 def _tile(tile) -> tuple[int, int]:
@@ -461,8 +483,8 @@ class RoundLaunch:
     (shard, orow, rows), the extended blocks of ``rows`` interior rows of
     a shard from shard row ``orow``, with ghosts kx, ky, all on one device.
 
-    On a card it holds the kernel's tile (``fdtd_tiled.pick_tile`` over the
-    regions' blocks), each region's scratch for the state between
+    On a card it holds the kernel's tile (:func:`pick_region_tile` over
+    the regions' blocks), each region's scratch for the state between
     sub-rounds and the region table (``kernels.RoundRegion``) for either
     state parity, made once: the tensors the table points at live as long
     as the launch. The plain version (:func:`device_round_reference`)
@@ -489,9 +511,9 @@ class RoundLaunch:
                 for s, _, rows in self.regions]
 
     def _make_table(self) -> None:
-        k = fdtd_tiled.HALO
-        self.tile = tx, ty = fdtd_tiled.pick_tile(
-            self.blocks(), k, torch.cuda.get_device_properties(
+        k = SUB_ROUND
+        self.tile = tx, ty = pick_region_tile(
+            self.blocks(), torch.cuda.get_device_properties(
                 self.device).multi_processor_count)
         # the state between sub-rounds, where a round has more than one
         self.scratch = [torch.empty((2, 3, ex, ey), dtype=torch.float32,

@@ -205,7 +205,7 @@ def test_pipeline_auto_batch_tiled_route(case, monkeypatch):
         return mom(*a, **k)
 
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
-    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
+    monkeypatch.setattr(fdtd_tiled, "PLAIN_PLAN", (16, 8, 6))
     monkeypatch.setattr(fdtd_tiled, "fdtd_sim_tiled", sim_spy)
     monkeypatch.setattr(fdtd_tiled, "rt60_moments_tiled", mom_spy)
     fdtd_fused.reset_launch_counts()

@@ -117,8 +117,7 @@ def test_tiled_route_matches(engines, monkeypatch):
     j, t = engines
     monkeypatch.setattr(free_grid, "_CACHE", {})   # calibrate tiled too
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
-    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
-    monkeypatch.setattr(fdtd_tiled, "HALO", 4)
+    monkeypatch.setattr(fdtd_tiled, "PLAIN_PLAN", (16, 8, 4))
     tiled = tpv.Context(t.config,
                         scene=tpv.Scene(boxes=t.geometry.snapshot()[1]),
                         device="cpu")
@@ -519,7 +518,7 @@ def test_multi_listener_tiled_route(monkeypatch):
 
     batched, _ = _multi_ctx(tpv)
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
-    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
+    monkeypatch.setattr(fdtd_tiled, "PLAIN_PLAN", (16, 8, 6))
     tiled, _ = _multi_ctx(tpv)
     for k in batched._published.keys() - {"listener", "listeners"}:
         np.testing.assert_array_equal(tiled._published[k],

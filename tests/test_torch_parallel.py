@@ -392,23 +392,24 @@ def test_round_wrappers_take_plain_path_on_cpu(room):
 
 
 def test_pick_region_tile():
-    """On a 132-SM card a round launch takes B3's tile (20 x 52 or 20 x
-    20 at B3's border, ``fdtd_tiled.pick_tile``) with the fewest waves of
-    windows over all of its regions: 20 x 52 for the headline's four 128^2
-    extended blocks (84 tiles; 20 x 20 would take two waves of 196), the
-    126 m world's four 514^2 and the split's eight 48-row frames of 126 m;
-    20 x 20 where one wave of either suffices (a 224 x 192 block, a 32^2
-    one)."""
+    """On a 132-SM card a round launch takes a tile of its own (20 x 52 or
+    20 x 20 at a 6-cell border, ``solver_fused.pick_region_tile``; B3 plans
+    apart) with the fewest waves of windows over all of its regions: 20 x
+    52 for the headline's four 128^2 extended blocks (84 tiles; 20 x 20
+    would take two waves of 196), the 126 m world's four 514^2 and the
+    split's eight 48-row frames of 126 m; 20 x 20 where one wave of either
+    suffices (a 224 x 192 block, a 32^2 one). Sub-rounds stay 6 steps."""
+    assert solver_fused.SUB_ROUND == 6
+    assert solver_fused.REGION_TILES == ((20, 52), (20, 20))
+
     def pick(blocks):
-        return fdtd_tiled.pick_tile(blocks, fdtd_tiled.HALO, 132)
+        return solver_fused.pick_region_tile(blocks, 132)
 
     assert pick([(128, 128)] * 4) == (20, 52)
     assert pick([(514, 514)] * 4) == (20, 52)
     assert pick([(48, 996)] * 8) == (20, 52)
     assert pick([(224, 192)]) == (20, 20)
     assert pick([(32, 32)]) == (20, 20)
-    for tile in ((20, 52), (20, 20)):
-        assert tile in fdtd_tiled.TILES
 
 
 def test_sharded_errors(room):

@@ -39,8 +39,7 @@ def _json(path):
 def tiled(monkeypatch):
     """Every grid on the tiled route, in several windows."""
     monkeypatch.setattr(fdtd_fused, "TILED_MIN_CELLS", 0)
-    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
-    monkeypatch.setattr(fdtd_tiled, "HALO", 4)
+    monkeypatch.setattr(fdtd_tiled, "PLAIN_PLAN", (16, 8, 4))
 
 
 def _split4(publish):
@@ -80,8 +79,7 @@ def card_rule(monkeypatch):
     monkeypatch.setattr(fdtd_fused, "route_tiled",
                         lambda cells, listeners, dtype, card:
                         real(cells, listeners, dtype, True))
-    monkeypatch.setattr(fdtd_tiled, "TILES", ((16, 8),))
-    monkeypatch.setattr(fdtd_tiled, "HALO", 4)
+    monkeypatch.setattr(fdtd_tiled, "PLAIN_PLAN", (16, 8, 4))
 
 
 def _context(listeners, precision="f32"):

@@ -33,12 +33,15 @@ CFG = tcfg.PlaneverbConfig(10.0, 10.0, 275)
 F32, BF16 = torch.float32, torch.bfloat16
 HEADLINE = 192 * 192
 SINGLE = fdtd_fused.TILED_SINGLE_MIN_CELLS
+# Every round depth the card's plan can take, each with the plans of a 32 x
+# 64 and a 32 x 32 window (fdtd_tiled.PLANS)
+RULE_PLANS = [plan for plan in fdtd_tiled.PLANS
+              if fdtd_tiled.block_shape(*plan) in ((64, 8), (32, 8))]
 # (T, tile, halo); with 8 x 8 tiles the listener cell (14, 14) lies 2 cells
 # from a tile edge, inside the halo of its neighbours' windows
 CASES = [(70, (8, 8), 4), (33, (16, 8), 3), (64, (24, 16), 8),
          (70, (32, 32), 16),
-         # the card's tilings (fdtd_tiled.TILES at HALO)
-         *((70, tile, fdtd_tiled.HALO) for tile in fdtd_tiled.TILES)]
+         *((70, plan[:2], plan[2]) for plan in RULE_PLANS)]
 OUTPUTS = ("pressure", "onset", "flux_x", "flux_y", "e_dry", "e_wet",
            "e_total")
 
@@ -311,18 +314,129 @@ def test_routers_run_the_route_they_are_told(monkeypatch, router, views,
         assert calls == ["fdtd_sim" if views == 1 else "fdtd_sim_batch"]
 
 
+# an H100's SMs and the shared memory a block may opt into (227 KB)
+H100_SMS, H100_OPTIN = 132, 227 * 1024
+
+
+def _plan(n, T):
+    return fdtd_tiled.plan_tiled(n, n, T, H100_SMS, H100_OPTIN)
+
+
 def test_pick_tile():
-    """On a 132-SM card the tile model picks what the H100 measured
-    fastest (probe_tiled.py): 20 x 52 at 459^2 and 964^2, whose busiest SM
-    steps 2 and 8 windows of 32 x 64; 20 x 20 on the small grids, where
-    20 x 52 tiles would leave most SMs idle."""
-    assert fdtd_tiled.TILES == ((20, 52), (20, 20)) and fdtd_tiled.HALO == 6
-    picks = {n: fdtd_tiled.pick_tile([(n, n)], fdtd_tiled.HALO, 132)
-             for n in (192, 261, 459, 964)}
-    assert picks == {192: (20, 20), 261: (20, 52), 459: (20, 52),
-                     964: (20, 52)}
-    assert fdtd_tiled.pick_tile([(29, 29)], 6, 132) == (20, 20)
-    assert fdtd_tiled.pick_tile([(964, 964)], 6, 1) == (20, 52)
+    """On a 132-SM card the plan model picks what the H100 measured
+    fastest of all 111 plans (probe_tiled.py): 22 x 54 at k = 5 at 964^2
+    (792 = 6 x 132 windows: no tail round), 46 x 18 at k = 7 at 459^2; at
+    192^2 20 x 16 at k = 8, within 1.2 % of the fastest; one round of at
+    most one window an SM on the small grids."""
+    picks = {n: _plan(n, T) for n, T in ((65, 1187), (192, 1187),
+                                         (459, 1470), (964, 2006))}
+    assert picks == {65: (4, 16, 8), 192: (20, 16, 8), 459: (46, 18, 7),
+                     964: (22, 54, 5)}
+    assert fdtd_tiled.window_rounds(964, 964, 2006, picks[964], 132) == 2412
+    assert fdtd_tiled.window_rounds(192, 192, 1187, picks[192], 132) == 149
+    # the plan B3 ran before: 931 windows, 7 SMs step an eighth every round
+    assert fdtd_tiled.window_rounds(964, 964, 2006, (20, 52, 6), 132) == 2680
+    assert fdtd_tiled.window_rounds(192, 192, 1187, (20, 20, 6), 132) == 198
+    assert _plan(29, 70) in fdtd_tiled.PLANS
+    # one SM steps every window, one after another: the fewest window cells
+    # a round, whatever the tail
+    one = fdtd_tiled.plan_tiled(964, 964, 2006, 1, H100_OPTIN)
+    assert fdtd_tiled.plan_cost(964, 964, 2006, one, 1, H100_OPTIN) == min(
+        fdtd_tiled.plan_cost(964, 964, 2006, plan, 1, H100_OPTIN)
+        for plan in fdtd_tiled.PLANS)
+
+
+def test_plan_without_a_tail():
+    """A field whose windows are an exact multiple of the SM count has no
+    tail: the busiest SM steps windows / SMs, and one cell more (a row of
+    windows more) never costs less."""
+    plan = (22, 54, 5)
+    nx, ny = 22 * 12, 54 * 11          # 132 windows
+    for sms, busiest in ((132, 1), (66, 2), (44, 3)):
+        assert fdtd_tiled.window_rounds(nx, ny, 2006, plan, sms) == (
+            402 * busiest)
+        for more in ((nx + 1, ny), (nx, ny + 1)):
+            assert fdtd_tiled.window_rounds(*more, 2006, plan, sms) > (
+                402 * busiest)
+            assert fdtd_tiled.plan_cost(*more, 2006, plan, sms,
+                                        H100_OPTIN) > fdtd_tiled.plan_cost(
+                nx, ny, 2006, plan, sms, H100_OPTIN)
+
+
+@pytest.mark.parametrize("n", [16, 29, 65, 96, 128, 160, 192, 261, 320,
+                               459, 640, 800, 964])
+def test_plan_fits_the_kernel(n):
+    """Every plan the rule returns for the engine's grids (up to 964^2)
+    fits the kernel's thread bound and keeps its accumulators in shared
+    memory; above ~1100^2 none can, and the pick still fits the bound."""
+    T = 1187 if n <= 192 else 2006
+    plan = _plan(n, T)
+    lanes, runs = fdtd_tiled.block_shape(*plan)
+    assert lanes * runs <= fdtd_tiled.MAX_THREADS
+    assert plan[2] in fdtd_tiled.K_RANGE
+    assert fdtd_tiled.acc_fits(n, n, plan, H100_SMS, H100_OPTIN)
+    big = _plan(1400, 2200)
+    assert not fdtd_tiled.acc_fits(1400, 1400, big, H100_SMS, H100_OPTIN)
+    assert fdtd_tiled.block_shape(*big)[0] * fdtd_tiled.block_shape(
+        *big)[1] <= fdtd_tiled.MAX_THREADS
+
+
+def test_acc_fits_mirrors_the_launcher():
+    """The launcher's shared-memory rule (csrc/windows.cuh acc_fits): the
+    block's edges and a [6][tile cells] float slot a tile it steps; at
+    964^2 the old plan's 8 slots of 20 x 52 take 204,288 bytes, 22 x 54's 6
+    slots 175,680."""
+    def smem(n, plan):
+        tx, ty, k = plan
+        lanes, runs = fdtd_tiled.block_shape(tx, ty, k)
+        windows = -(-n // tx) * -(-n // ty)
+        per_block = -(-windows // min(windows, H100_SMS))
+        edges = 2 * runs * lanes + 2 * (lanes // 32) * runs * fdtd_tiled.RUN
+        return 4 * (edges + per_block * 6 * tx * ty)
+
+    assert smem(964, (20, 52, 6)) == 204288
+    assert smem(964, (22, 54, 5)) == 175680
+    for plan in fdtd_tiled.PLANS:
+        need = smem(964, plan)
+        assert fdtd_tiled.acc_fits(964, 964, plan, H100_SMS, need)
+        assert not fdtd_tiled.acc_fits(964, 964, plan, H100_SMS, need - 1)
+
+
+def test_card_pass_counts_its_window_rounds(monkeypatch):
+    """On the card fdtd_sim_tiled launches the plan_tiled plan for the
+    field and adds its window-rounds to the step's solver.window_rounds
+    counter; a plan given whole is launched as given. (The launch is the
+    plain version here, and the card's properties an H100's.)"""
+    from planeverb_tpu_torch.utils import profiling
+
+    p, arrays, (lix, liy) = _setup(70)
+    b, r, pl = fields_from_numpy(*arrays, device="cpu")
+    launched = []
+
+    def launch(params, beta, refl, pulse, lix, liy, tx, ty, k):
+        launched.append((tx, ty, k))
+        return fdtd_tiled.fdtd_sim_tiled_reference(
+            params, beta, refl, pulse, lix, liy, tile=(tx, ty), halo=k)
+
+    props = type("Props", (), {"multi_processor_count": H100_SMS,
+                               "shared_memory_per_block_optin": H100_OPTIN})
+    monkeypatch.setattr(fdtd_tiled, "on_card", lambda *a: True)
+    monkeypatch.setattr(fdtd_tiled, "_launch_fdtd_sim_tiled", launch)
+    monkeypatch.setattr(fdtd_tiled.torch.cuda, "get_device_properties",
+                        lambda dev: props)
+    ref = _named(*fdtd_fused.fdtd_sim_reference(p, b, r, pl, lix, liy))
+    timer = profiling.StageTimer()
+    with timer.step(7):
+        got = _named(*fdtd_tiled.fdtd_sim_tiled(p, b, r, pl, lix, liy))
+        fdtd_tiled.fdtd_sim_tiled(p, b, r, pl, lix, liy, tile=(8, 8),
+                                  halo=4)
+    plan = _plan(p.nx, 70)
+    assert launched == [plan, (8, 8, 4)]
+    want = (fdtd_tiled.window_rounds(p.nx, p.ny, 70, plan, H100_SMS)
+            + fdtd_tiled.window_rounds(p.nx, p.ny, 70, (8, 8, 4), H100_SMS))
+    assert profiling.steps()[-1].counters["solver.window_rounds"] == want
+    for name in OUTPUTS:
+        assert torch.equal(got[name], ref[name]), name
 
 
 @pytest.mark.parametrize("tile,k,shape", [
@@ -332,21 +446,21 @@ def test_pick_tile():
 ])
 def test_block_shape(tile, k, shape):
     """A block on the card is a thread a window column, rounded up to whole
-    warps, by runs of RUN rows; the card's tilings stay within its thread
-    bound."""
+    warps, by runs of RUN rows; every plan B3 chooses from stays within its
+    thread bound."""
     lanes, runs = fdtd_tiled.block_shape(*tile, k)
     assert (lanes, runs) == shape
     assert lanes % 32 == 0 and lanes >= tile[1] + 2 * k
     assert runs * fdtd_tiled.RUN >= tile[0] + 2 * k
-    for t in fdtd_tiled.TILES:
-        lanes, runs = fdtd_tiled.block_shape(*t, fdtd_tiled.HALO)
+    for plan in fdtd_tiled.PLANS:
+        lanes, runs = fdtd_tiled.block_shape(*plan)
         assert lanes * runs <= fdtd_tiled.MAX_THREADS
 
 
 # rigid outer walls: the fold's edge terms without the ABC (the B3 kernel
 # folds them itself, as B6 does)
 RIGID_CASES = [(70, (8, 8), 4), (33, (16, 8), 3),
-               *((70, tile, fdtd_tiled.HALO) for tile in fdtd_tiled.TILES)]
+               *((70, plan[:2], plan[2]) for plan in RULE_PLANS)]
 
 
 @pytest.mark.parametrize("T,tile,halo", RIGID_CASES,
